@@ -1,0 +1,40 @@
+"""piccolax_torch — the PyTorch/CUDA port of piccolax for one NVIDIA H100.
+
+The same batched interior-point collocation solver as `piccolax`, written
+with PyTorch tensors and an explicit batch dimension. Every routine that
+`piccolax` shaped for the TPU (the Cholesky-inverse factor, the
+Newton-Schulz PSD clamp, the cyclic-reduction KKT, the Taylor expm) is a
+hand-written CUDA kernel for sm_90a here (`csrc/`), with a plain PyTorch
+version beside it that serves tensors on the CPU.
+
+Entry points run on the card unless the caller passes `device="cpu"`.
+
+Precision: float32 matrix products run in full float32 (no TF32), the
+twin of the MXU precision guard in `piccolax.solver.ipm._trace_ctx`.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+__version__ = "0.1.0"
+
+from . import control, quantum, solver  # noqa: E402
+from .benchmarks import sx_gate_problem  # noqa: E402
+from .control import QuantumControlProblem, SmoothPulseProblem, build_nlp  # noqa: E402
+from .convert import nlp_from_numpy  # noqa: E402
+from .quantum.gates import GATES, PAULIS  # noqa: E402
+from .quantum.pulses import ZeroOrderPulse  # noqa: E402
+from .quantum.systems import QuantumSystem  # noqa: E402
+from .quantum.trajectories import UnitaryTrajectory, discretize  # noqa: E402
+from .solver import IPMOptions, IPMState, solve_nlp  # noqa: E402
+from .trajectory import KnotLayout, Trajectory  # noqa: E402
+
+__all__ = [
+    "GATES", "PAULIS", "IPMOptions", "IPMState", "KnotLayout",
+    "QuantumControlProblem", "QuantumSystem", "SmoothPulseProblem",
+    "Trajectory", "UnitaryTrajectory", "ZeroOrderPulse", "build_nlp",
+    "discretize", "nlp_from_numpy", "solve_nlp", "sx_gate_problem",
+]

@@ -1,0 +1,147 @@
+"""Collocation dynamics integrators (residual rows and their exact
+derivatives), batched over leading axes.
+
+Rows are affine in z_{k+1}, as the condensed KKT requires:
+
+- `BilinearUnitaryIntegrator`: U_{k+1} - expm(dt_k G(u_k)) U_k on operator
+  iso-vecs. The propagator and its exact first and second derivatives in
+  u come from ONE call of the Taylor expm kernel (K4) on block-triangular
+  augmentations (`ops.expm.expm_fixed_derivatives`): the derivatives of
+  the same approximant that piccolax differentiates with jacfwd/hessian.
+- `DerivativeIntegrator`: u_{k+1} - u_k - dt_k du_k (linear, no kernel).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops.expm import TAYLOR_THETA, expm_fixed, expm_fixed_derivatives
+
+__all__ = ["BilinearUnitaryIntegrator", "DerivativeIntegrator",
+           "choose_squarings"]
+
+
+def choose_squarings(max_norm: float, order="taylor") -> int:
+    """Static squaring count so ||A||/2^s is inside the approximant's
+    accuracy radius (Taylor: ops/expm.py TAYLOR_THETA)."""
+    radius = TAYLOR_THETA if order == "taylor" \
+        else {3: 0.02, 5: 0.25, 7: 0.95, 9: 2.1}[order]
+    if max_norm <= radius:
+        return 0
+    return max(0, math.ceil(math.log2(max_norm / radius)))
+
+
+def _bound_dt_G_norm(system, traj) -> float:
+    """Conservative bound on ||dt * H(u)|| over the feasible box."""
+    H0 = np.asarray(system.get_drift())
+    norm = np.linalg.norm(H0, 2) if H0.size else 0.0
+    bounds = np.asarray(system.drive_bounds)
+    for i, d in enumerate(system.get_drives()):
+        b = max(abs(bounds[i, 0]), abs(bounds[i, 1])) if i < len(bounds) else 1.0
+        if not np.isfinite(b):
+            b = 1.0
+        norm += b * np.linalg.norm(np.asarray(d), 2)
+    dts = np.asarray(traj.get_timesteps())
+    dt_max = float(np.max(dts))
+    if "dt" in traj.bounds:
+        dt_max = max(dt_max, float(np.max(np.asarray(traj.bounds["dt"])[:, 1])))
+    return norm * dt_max
+
+
+class BilinearUnitaryIntegrator:
+    """Rows: U_{k+1} - expm(dt_k G(u_k)) U_k in operator iso-vec form."""
+
+    def __init__(self, state_name: str, drive_name: str, levels: int,
+                 order="taylor", squarings: int = 2, time_name: str = "dt"):
+        self.state_name = state_name
+        self.drive_name = drive_name
+        self.time_name = time_name
+        self.order = order
+        self.squarings = squarings
+        self.levels = levels
+        self.dim = 2 * levels * levels
+
+    def _cols(self, x):
+        """operator iso-vec [..., 2n^2] -> rows = columns [..., n, 2n]."""
+        n = self.levels
+        return x.reshape(*x.shape[:-1], n, 2 * n)
+
+    def residual(self, get, getp, params):
+        """[..., K, dim] for knots k with z_k from get, z_{k+1} from getp."""
+        system = params["system"]
+        dt = get(self.time_name)[..., 0]
+        Phi = expm_fixed((dt[..., None, None] * system.G(get(self.drive_name))
+                          ).contiguous(), self.order, self.squarings)
+        Xc = self._cols(get(self.state_name))
+        Xn = self._cols(getp(self.state_name))
+        R = Xn - Xc @ Phi.mT
+        return R.reshape(*R.shape[:-2], self.dim)
+
+    def derivatives(self, get, getp, params, lam, layout):
+        """Jacobian blocks and the Hessian of lam . rows in z_k.
+
+        Returns (Jself [..., K, dim, dz], Jnext [..., K, dim, dz],
+        H [..., K, dz, dz]); lam [..., K, dim].
+        """
+        system = params["system"]
+        n, nd = self.levels, system.n_drives
+        w = 2 * n
+        dt = get(self.time_name)[..., 0][..., None, None]
+        A = dt * system.G(get(self.drive_name))                 # [..., K, w, w]
+        E = dt[..., None, :, :] * system.G_drives               # [..., K, nd, w, w]
+        lead = A.shape[:-2]
+        Phi, dPhi, D2 = expm_fixed_derivatives(A, E, self.order, self.squarings)
+
+        Xc = self._cols(get(self.state_name))                   # [..., K, n, w]
+        lam_c = self._cols(lam)
+        dz = layout.z_dim
+        sU = layout.slices[self.state_name]
+        su = layout.slices[self.drive_name]
+        Jself = A.new_zeros(*lead, self.dim, dz)
+        eye_n = torch.eye(n, dtype=A.dtype, device=A.device)
+        kron = eye_n[:, None, :, None] * Phi[..., None, :, None, :]
+        Jself[..., sU] = -kron.reshape(*lead, self.dim, self.dim)
+        dX = Xc[..., None, :, :] @ dPhi.mT                      # [..., K, nd, n, w]
+        Jself[..., su] = -dX.reshape(*lead, nd, self.dim).mT
+        Jnext = A.new_zeros(*lead, self.dim, dz)
+        Jnext[..., sU] = torch.eye(self.dim, dtype=A.dtype, device=A.device)
+
+        H = A.new_zeros(*lead, dz, dz)
+        Huu = -torch.einsum("...ca,...ijab,...cb->...ij", lam_c, D2, Xc)
+        HuU = -(lam_c[..., None, :, :] @ dPhi).reshape(*lead, nd, self.dim)
+        H[..., su, su] = Huu
+        H[..., su, sU] = HuU
+        H[..., sU, su] = HuU.mT
+        return Jself, Jnext, H
+
+
+class DerivativeIntegrator:
+    """u_{k+1} - u_k - dt_k * du_k."""
+
+    def __init__(self, name: str, dname: str, dim: int,
+                 time_name: str = "dt"):
+        self.name = name
+        self.dname = dname
+        self.time_name = time_name
+        self.dim = dim
+
+    def residual(self, get, getp, params):
+        dt = get(self.time_name)
+        return getp(self.name) - get(self.name) - dt * get(self.dname)
+
+    def derivatives(self, get, getp, params, lam, layout):
+        dt = get(self.time_name)[..., 0]
+        lead = torch.broadcast_shapes(dt.shape, lam.shape[:-1])
+        kw = dict(dtype=lam.dtype, device=lam.device)
+        eye = torch.eye(self.dim, **kw)
+        dz = layout.z_dim
+        s, sd = layout.slices[self.name], layout.slices[self.dname]
+        Jself = torch.zeros(*lead, self.dim, dz, **kw)
+        Jself[..., s] = -eye
+        Jself[..., sd] = -dt[..., None, None] * eye
+        Jnext = torch.zeros(*lead, self.dim, dz, **kw)
+        Jnext[..., s] = eye
+        return Jself, Jnext, torch.zeros(*lead, dz, dz, **kw)

@@ -1,0 +1,80 @@
+"""Problem templates: `SmoothPulseProblem`, on the unitary-gate path of
+`piccolax.control.templates` (ZOH pulse, chained derivatives u -> du ->
+ddu, bilinear unitary dynamics, terminal infidelity, quadratic
+regularizers)."""
+
+from __future__ import annotations
+
+from ..quantum.trajectories import UnitaryTrajectory, discretize
+from . import integrators as intg
+from . import objectives as obj
+from .problem import QuantumControlProblem
+
+__all__ = ["SmoothPulseProblem"]
+
+
+def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
+                       R_u=None, R_du=None, R_ddu=None,
+                       du_bound: float = 1.0, ddu_bound: float = 1.0,
+                       dt_bounds=None,
+                       zero_initial_and_final_derivative=None,
+                       state_bound="box", pade_order="taylor",
+                       leakage_indices=None, leakage_cost=None,
+                       leakage_value=None, free_phase=False,
+                       global_bounds=None, calibration_targets=None,
+                       geodesic=None, options=None,
+                       extra_objectives=(), extra_constraints=()):
+    """Canonical ZOH-pulse collocation problem with smoothness via chained
+    derivative variables du, ddu."""
+    unported = {
+        "free_phase": bool(free_phase),
+        "leakage": (leakage_indices is not None or bool(leakage_cost)
+                    or leakage_value is not None),
+        "options records": options is not None,
+        "extra constraints": bool(tuple(extra_constraints)),
+        "extra objectives": bool(tuple(extra_objectives)),
+        "global bounds": bool(global_bounds),
+        "calibration targets": bool(calibration_targets),
+        "free timesteps": dt_bounds is not None,
+    }
+    for what, asked in unported.items():
+        if asked:
+            raise NotImplementedError(f"SmoothPulseProblem: {what}")
+    if not isinstance(qtraj, UnitaryTrajectory):
+        raise NotImplementedError("only UnitaryTrajectory is ported")
+    if pade_order != "taylor":
+        raise NotImplementedError(f"pade_order={pade_order!r} (only 'taylor')")
+    zero_d = bool(zero_initial_and_final_derivative)
+    if state_bound == "box":
+        state_bound = 1.0
+    geodesic = True if geodesic is None else geodesic
+    traj = discretize(qtraj, N, state_bound=state_bound, geodesic=geodesic)
+    dname = qtraj.drive_name
+    traj = traj.add_control_derivatives(
+        2, name=dname, bounds=[du_bound, ddu_bound],
+        zero_initial=zero_d, zero_final=zero_d)
+    R_u = R if R_u is None else R_u
+    R_du = R if R_du is None else R_du
+    R_ddu = R if R_ddu is None else R_ddu
+
+    norm_bound = intg._bound_dt_G_norm(qtraj.system, traj)
+    if norm_bound > 1.5:
+        import warnings
+        warnings.warn(
+            f"dt * ||H|| may reach {norm_bound:.2f} (> 1.5): the collocation "
+            "constraints are strongly nonlinear per knot and the solver may "
+            "crawl. Increase the knot count N (smaller dt) or rescale units.",
+            stacklevel=2)
+    squarings = intg.choose_squarings(norm_bound, pade_order)
+    integrators = [intg.BilinearUnitaryIntegrator(
+        qtraj.state_name, dname, qtraj.system.levels, order=pade_order,
+        squarings=squarings)]
+    objectives = [obj.UnitaryInfidelityObjective(qtraj.state_name, Q=Q)]
+    names = [dname, "d" + dname, "dd" + dname]
+    d = traj.dims[dname]
+    for a, b in zip(names[:-1], names[1:]):
+        integrators.append(intg.DerivativeIntegrator(a, b, d))
+    for Ri, nm in zip((R_u, R_du, R_ddu), names):
+        if Ri is not None and Ri != 0:
+            objectives.append(obj.QuadraticRegularizer(nm, Ri))
+    return QuantumControlProblem(qtraj, traj, objectives, integrators)

@@ -1,0 +1,68 @@
+"""Carry a built SX-type problem across as plain numpy arrays.
+
+The arrays take the place of weights: bounds, pins, frozen timesteps, the
+real generator matrices, the goal iso-vec, the objective weights, the
+layout and the static squaring count. `nlp_from_numpy` builds the port's
+NLP from them (for instance from arrays taken out of a `piccolax` build).
+
+Keys: Z0 [N, dz]; lo, hi, pin_mask, pin_val [N, dz]; dt, t [N];
+G_drift [2n, 2n]; G_drives [nd, 2n, 2n]; goal [2n^2]; Q (float);
+R (R_u, R_du, R_ddu); slices {name: (start, stop)} over the knot columns;
+state_name, drive_name (str); squarings (int).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .control.integrators import BilinearUnitaryIntegrator, DerivativeIntegrator
+from .control.objectives import QuadraticRegularizer, UnitaryInfidelityObjective
+from .quantum.systems import RealGeneratorSystem
+from .solver.nlp import CollocationNLP, params_to
+from .trajectory import KnotLayout
+
+__all__ = ["nlp_from_numpy"]
+
+
+def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
+    """(nlp, params, Z0, g0, layout) of the port from the arrays of a
+    built SX-type problem (module docstring)."""
+    device = resolve_device(device)
+    a = arrays
+    names = list(a["slices"])
+    layout = KnotLayout(names, [a["slices"][n][1] - a["slices"][n][0]
+                                for n in names])
+    U, u = a["state_name"], a["drive_name"]
+    goal = np.asarray(a["goal"], float)
+    levels = int(round(np.sqrt(goal.shape[-1] // 2)))
+    nd = layout.slices[u].stop - layout.slices[u].start
+    derivs = [u, "d" + u, "dd" + u]
+    integrators = [BilinearUnitaryIntegrator(U, u, levels,
+                                             squarings=int(a["squarings"]))]
+    integrators += [DerivativeIntegrator(x, y, nd)
+                    for x, y in zip(derivs[:-1], derivs[1:])]
+    objectives = [UnitaryInfidelityObjective(U, Q=float(a["Q"]))]
+    objectives += [QuadraticRegularizer(nm, float(R))
+                   for nm, R in zip(derivs, a["R"])]
+    nl_cols = list(range(layout.slices[u].start, layout.slices[u].stop))
+    lin_cols = [c for c in range(layout.z_dim) if c not in nl_cols]
+    nlp = CollocationNLP(
+        N=np.asarray(a["Z0"]).shape[0], dz=layout.z_dim,
+        md=sum(i.dim for i in integrators), objectives=objectives,
+        integrators=integrators, layout=layout,
+        lo=np.asarray(a["lo"], float), hi=np.asarray(a["hi"], float),
+        pin_mask=np.asarray(a["pin_mask"], float),
+        nl_cols=nl_cols, lin_cols=lin_cols).to(device, dtype)
+    params = params_to({
+        "system": RealGeneratorSystem(np.asarray(a["G_drift"], float),
+                                      np.asarray(a["G_drives"], float), levels),
+        "goal": {U: goal},
+        "frozen": {"dt": np.asarray(a["dt"], float)[:, None],
+                   "t": np.asarray(a["t"], float)[:, None]},
+        "pin_val": np.asarray(a["pin_val"], float),
+    }, device, dtype)
+    Z0 = torch.as_tensor(np.asarray(a["Z0"], float)).to(device, dtype)
+    return nlp, params, Z0, torch.zeros(0, dtype=dtype, device=device), layout
+

@@ -1,0 +1,34 @@
+"""Complex <-> real isomorphisms (host-side numpy), the conventions of
+`piccolax.quantum.isomorphisms`:
+
+- operator iso-vec: column-major, per column ``[Re(col); Im(col)]`` (2n^2,)
+- iso(H) = [[Re H, -Im H], [Im H, Re H]];  G(H) = iso(-iH)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["operator_to_iso_vec", "iso", "G"]
+
+
+def operator_to_iso_vec(U):
+    """U (…, n, n) complex -> (…, 2n^2) real, column-major [Re(col); Im(col)]."""
+    U = np.asarray(U)
+    cols = np.swapaxes(U, -1, -2)
+    blocks = np.concatenate([cols.real, cols.imag], axis=-1)
+    return blocks.reshape(*U.shape[:-2], -1)
+
+
+def iso(Hm):
+    """iso(H) = [[Re H, -Im H], [Im H, Re H]]  (…, n, n) -> (…, 2n, 2n)."""
+    Hm = np.asarray(Hm)
+    re, im = Hm.real, Hm.imag
+    top = np.concatenate([re, -im], axis=-1)
+    bot = np.concatenate([im, re], axis=-1)
+    return np.concatenate([top, bot], axis=-2)
+
+
+def G(Hm):
+    """Iso generator of -iH: G(H) = iso(-iH) (real 2n x 2n)."""
+    return iso(-1j * np.asarray(Hm))

@@ -1,0 +1,107 @@
+"""Closed quantum systems with linear drives, and their real-generator
+solver view.
+
+    H(u) = H_drift + sum_d u[d] * H_drive_d
+
+The port's slice covers constant drift and linear drive terms; time
+modulations, nonlinear drive coefficients and function-based systems
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import isomorphisms as iso_mod
+
+__all__ = ["QuantumSystem", "RealGeneratorSystem", "normalize_drive_bounds"]
+
+
+def normalize_drive_bounds(bounds, n_drives: int):
+    """Normalize drive bounds to an [n_drives, 2] (lo, hi) array."""
+    if bounds is None:
+        return np.stack([np.full(n_drives, -np.inf),
+                         np.full(n_drives, np.inf)], axis=-1)
+    if np.isscalar(bounds):
+        b = float(bounds)
+        return np.stack([np.full(n_drives, -b), np.full(n_drives, b)], axis=-1)
+    out = []
+    for b in bounds:
+        if np.isscalar(b):
+            out.append((-float(b), float(b)))
+        else:
+            lo, hi = b
+            out.append((float(lo), float(hi)))
+    assert len(out) == n_drives, f"expected {n_drives} drive bounds, got {len(out)}"
+    return np.asarray(out)
+
+
+def _check_hermitian(M, name: str):
+    if not np.allclose(M, M.conj().T, atol=1e-10):
+        raise ValueError(f"{name} must be Hermitian")
+
+
+class QuantumSystem:
+    """Closed quantum system with a constant drift and linear drives."""
+
+    def __init__(self, H_drift, H_drives, drive_bounds=None):
+        drives = []
+        for d in H_drives or []:
+            if isinstance(d, tuple) or not isinstance(
+                    d, (np.ndarray, list)):
+                raise NotImplementedError(
+                    "only constant linear drive matrices are ported")
+            drives.append(np.asarray(d, dtype=np.complex128))
+        self.H_drift = np.asarray(H_drift, dtype=np.complex128)
+        self.H_drives = drives
+        _check_hermitian(self.H_drift, "H_drift")
+        for d in drives:
+            _check_hermitian(d, "H_drive")
+        self.levels = int(self.H_drift.shape[-1])
+        self.n_drives = len(drives)
+        self.drive_bounds = normalize_drive_bounds(drive_bounds, self.n_drives)
+
+    def H(self, u=None):
+        """Complex Hamiltonian at controls u (host-side)."""
+        u = np.zeros(self.n_drives) if u is None else np.asarray(u)
+        Hm = self.H_drift.copy()
+        for ui, d in zip(u, self.H_drives):
+            Hm = Hm + ui * d
+        return Hm
+
+    def get_drift(self):
+        return self.H_drift
+
+    def get_drives(self):
+        return list(self.H_drives)
+
+    def solver_view(self) -> "RealGeneratorSystem":
+        """Real-arithmetic view for the collocation solver."""
+        return RealGeneratorSystem(
+            iso_mod.G(self.H_drift),
+            np.stack([iso_mod.G(d) for d in self.H_drives]),
+            self.levels)
+
+
+class RealGeneratorSystem:
+    """Solver-side system: the real iso generator of every term.
+
+    G(u) = G_drift + sum_d u[d] G_d over any leading batch axes of u.
+    """
+
+    def __init__(self, G_drift, G_drives, levels: int):
+        self.G_drift = torch.as_tensor(G_drift)
+        self.G_drives = torch.as_tensor(G_drives)
+        self.levels = int(levels)
+        self.n_drives = int(self.G_drives.shape[0])
+
+    def to(self, device=None, dtype=None) -> "RealGeneratorSystem":
+        return RealGeneratorSystem(self.G_drift.to(device, dtype),
+                                   self.G_drives.to(device, dtype),
+                                   self.levels)
+
+    def G(self, u):
+        """u [..., n_drives] -> [..., 2n, 2n]."""
+        return self.G_drift + torch.einsum("...d,dij->...ij", u,
+                                           self.G_drives)

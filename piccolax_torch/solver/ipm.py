@@ -1,0 +1,504 @@
+"""Batched primal-dual interior-point method for collocation NLPs.
+
+The algorithm of `piccolax.solver.ipm` (Fiacco-McCormick barrier, exact
+per-knot Lagrangian Hessians, condensed KKT by cyclic reduction, PSD-clamp
+direction plus a second-order-corrected step, fraction-to-boundary and a
+parallel Armijo search on an augmented-Lagrangian merit), with the
+`vmap(while_loop)` of the reference written out as a batch dimension:
+
+- every scalar of the state is a [B] tensor and every max/sum/all over a
+  problem reduces over the non-batch dimensions only;
+- a problem whose loop condition is false keeps its whole state frozen,
+  as a vmapped while_loop selects it;
+- the loop ends when every problem is done or max_iter is reached, with
+  one host sync per iteration.
+
+This slice runs kkt_backend="cr" with hess_mode "clamp" or "abs" and no
+exact-Newton candidate; every other option raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .._device import resolve_device
+from .kkt import condensed_factor, condensed_solve, psd_clamp
+from .nlp import (CollocationNLP, nlp_constraint_residuals, nlp_total_cost,
+                  params_to)
+
+__all__ = ["IPMOptions", "IPMState", "solve_nlp"]
+
+
+@dataclasses.dataclass(frozen=True)
+class IPMOptions:
+    max_iter: int = 100
+    tol: float = 1e-8
+    constr_viol_tol: float = 1e-8
+    mu_init: float = 1e-1
+    kappa_eps: float = 10.0
+    kappa_mu: float = 0.2
+    theta_mu: float = 1.5
+    tau_min: float = 0.99
+    delta_c: float = 1e-8        # constraint-row regularization (f64)
+    delta_c_f32: float = 1e-3    # constraint-row regularization (f32)
+    hess_floor: float = 1e-6     # clamp eigenvalue floor (f64)
+    hess_floor_f32: float = 3e-3  # clamp eigenvalue floor (f32)
+    ls_iters: int = 8
+    armijo_eta: float = 1e-4
+    kappa_sigma: float = 1e10
+    bound_push: float = 1e-2
+    bound_frac: float = 1e-2
+    bound_relax: float = 1e-7
+    acceptable_tol: float = 1e-3
+    acceptable_obj_change: float = 1e-5
+    acceptable_iter: int = 10
+    stall_iter: int = 12
+    stall_ratio: float = 0.7
+    prox_iter: int = 6
+    prox_ratio: float = 0.7
+    kkt_backend: str = "cr"
+    newton_dir: bool | None = None
+    hess_mode: str = "clamp"
+    clamp_iters: int | None = None
+
+
+@dataclasses.dataclass
+class IPMState:
+    """Solver state; every field has a leading batch dimension [B]."""
+    Z: torch.Tensor          # [B, N, dz]
+    g: torch.Tensor          # [B, dg]
+    lam: torch.Tensor        # [B, N, m]
+    lam_ref: torch.Tensor    # [B, N, m]
+    zL: torch.Tensor         # [B, N, dz]
+    zU: torch.Tensor         # [B, N, dz]
+    gL: torch.Tensor         # [B, dg]
+    gU: torch.Tensor         # [B, dg]
+    mu: torch.Tensor
+    nu: torch.Tensor
+    it: torch.Tensor
+    converged: torch.Tensor
+    kkt_err: torch.Tensor
+    alpha: torch.Tensor
+    delta_used: torch.Tensor
+    f_prev: torch.Tensor
+    stagnant: torch.Tensor
+    kkt_best: torch.Tensor
+    kkt_mark: torch.Tensor
+    inner_best: torch.Tensor
+    inner_mark: torch.Tensor
+    inner_count: torch.Tensor
+    stall_wins: torch.Tensor
+    no_prog: torch.Tensor
+    stalled: torch.Tensor
+    err_prim: torch.Tensor
+    err_dual: torch.Tensor
+
+    def select(self, mask, other: "IPMState") -> "IPMState":
+        """Per problem: self where mask [B] is true, else other."""
+        out = {}
+        for f in dataclasses.fields(self):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            out[f.name] = torch.where(mask.view(-1, *([1] * (a.dim() - 1))), a, b)
+        return IPMState(**out)
+
+    def index(self, i) -> "IPMState":
+        return IPMState(**{f.name: getattr(self, f.name)[i]
+                           for f in dataclasses.fields(self)})
+
+
+def _safe_gap(x, bound, mask):
+    """x - bound where the bound is finite (interior-positive), else 1."""
+    return torch.where(mask, x - bound, 1.0)
+
+
+def _init_interior(x, lo, hi, push_abs, push_frac):
+    """Push x strictly inside [lo, hi] (Ipopt-style bound_push)."""
+    has_lo = torch.isfinite(lo)
+    has_hi = torch.isfinite(hi)
+    lo_f = torch.where(has_lo, lo, 0.0)
+    hi_f = torch.where(has_hi, hi, 0.0)
+    width = torch.where(has_lo & has_hi, hi_f - lo_f, math.inf)
+    pl = torch.minimum(push_abs * torch.clamp(lo_f.abs(), min=1.0),
+                       push_frac * width)
+    pu = torch.minimum(push_abs * torch.clamp(hi_f.abs(), min=1.0),
+                       push_frac * width)
+    x = torch.where(has_lo, torch.maximum(x, lo_f + pl), x)
+    x = torch.where(has_hi, torch.minimum(x, hi_f - pu), x)
+    return x
+
+
+def _amax(x, dims=(-2, -1)):
+    return torch.amax(x.abs(), dim=dims)
+
+
+def _derivatives(nlp: CollocationNLP, Z, params, lam):
+    """(grad_z, Cself, Cnext, Hext) at Z [..., N, dz] for multipliers lam:
+    the cost gradient, the constraint Jacobian blocks (rows of knot k vs
+    z_k and vs z_{k+1}; zero rows at the last knot) and the symmetrised
+    per-knot Lagrangian Hessians. One K4 launch carries every expm."""
+    g, Hc = nlp.cost_derivatives(Z, params)
+    A, Bn, Hd = nlp.dynamics_derivatives(Z, params, lam[..., :-1, nlp.me:])
+    zpad = torch.zeros_like(A[..., :1, :, :])
+    Cself = torch.cat([A, zpad], dim=-3)
+    Cnext = torch.cat([Bn, zpad], dim=-3)
+    H = Hc + torch.cat([Hd, torch.zeros_like(Hd[..., :1, :, :])], dim=-3)
+    return g, Cself, Cnext, 0.5 * (H + H.mT)
+
+
+def _check_options(o: IPMOptions, is_f32: bool):
+    if o.kkt_backend != "cr":
+        raise NotImplementedError(f"kkt_backend={o.kkt_backend!r} (only 'cr')")
+    if o.hess_mode not in ("clamp", "abs"):
+        raise NotImplementedError(f"hess_mode={o.hess_mode!r}")
+    use_newton = o.newton_dir if o.newton_dir is not None else not is_f32
+    if use_newton:
+        raise NotImplementedError(
+            "the exact-Newton direction (newton_dir; the float64 default) — "
+            "pass newton_dir=False")
+
+
+def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
+           resume_from=None):
+    """Build (initial state, iteration body) for a batch Z0 [B, N, dz]."""
+    o = options
+    if resume_from is not None:
+        raise NotImplementedError("resume_from")
+    if nlp.dg or (g0 is not None and g0.shape[-1]):
+        raise NotImplementedError("globals (dg > 0)")
+    B, N, dz = Z0.shape
+    m = nlp.m
+    dtype, dev = Z0.dtype, Z0.device
+    kw = dict(dtype=dtype, device=dev)
+    is_f32 = dtype == torch.float32
+    _check_options(o, is_f32)
+    delta_c = max(o.delta_c, o.delta_c_f32) if is_f32 else o.delta_c
+    hess_floor = max(o.hess_floor, o.hess_floor_f32) if is_f32 else o.hess_floor
+    bound_relax = max(o.bound_relax, 1e-4) if is_f32 else o.bound_relax
+    clamp_iters = o.clamp_iters if o.clamp_iters is not None \
+        else (20 if is_f32 else 32)
+    clamp_mode = "abs" if o.hess_mode == "abs" else "pos"
+    eps = torch.finfo(dtype).eps
+    INF = math.inf
+
+    pinf = nlp.pin_mask                                    # [N, dz] 1 = fixed
+    free = 1.0 - pinf
+    free_next = torch.cat([free[1:], torch.ones(1, dz, **kw)], dim=0)
+    hasL = torch.isfinite(nlp.lo) & (pinf < 0.5)
+    hasU = torch.isfinite(nlp.hi) & (pinf < 0.5)
+    row_act = torch.cat([torch.ones(N - 1, m, **kw), torch.zeros(1, m, **kw)])
+    lo = torch.where(hasL, nlp.lo - bound_relax * torch.clamp(nlp.lo.abs(), min=1.0),
+                     nlp.lo)
+    hi = torch.where(hasU, nlp.hi + bound_relax * torch.clamp(nlp.hi.abs(), min=1.0),
+                     nlp.hi)
+    nlp = nlp.replace(lo=lo, hi=hi)
+
+    Z0 = torch.where(pinf > 0.5, params["pin_val"], Z0)
+    Z0 = _init_interior(Z0, lo, hi, o.bound_push, o.bound_frac)
+    mu0 = torch.full((B,), o.mu_init, **kw)
+
+    def full(v, dt=dtype):
+        return torch.full((B,), v, dtype=dt, device=dev)
+
+    state = IPMState(
+        Z=Z0, g=torch.zeros(B, 0, **kw),
+        lam=torch.zeros(B, N, m, **kw), lam_ref=torch.zeros(B, N, m, **kw),
+        zL=torch.where(hasL, mu0[:, None, None] / _safe_gap(Z0, lo, hasL), 0.0),
+        zU=torch.where(hasU, mu0[:, None, None] / _safe_gap(hi, Z0, hasU), 0.0),
+        gL=torch.zeros(B, 0, **kw), gU=torch.zeros(B, 0, **kw),
+        mu=mu0, nu=full(1.0), it=full(0, torch.long),
+        converged=full(False, torch.bool), kkt_err=full(INF),
+        alpha=full(0.0), delta_used=full(0.0), f_prev=full(INF),
+        stagnant=full(0, torch.long), kkt_best=full(INF), kkt_mark=full(INF),
+        inner_best=full(INF), inner_mark=full(INF),
+        inner_count=full(0, torch.long), stall_wins=full(0, torch.long),
+        no_prog=full(0, torch.long), stalled=full(False, torch.bool),
+        err_prim=full(INF), err_dual=full(INF))
+
+    reg_row = delta_c + (1.0 - row_act)                   # [N, m]
+    reg_b = reg_row.expand(B, N, m).contiguous()
+
+    def barrier(Z, mu):
+        gapL = _safe_gap(Z, lo, hasL)
+        gapU = _safe_gap(hi, Z, hasU)
+        sL = torch.where(hasL, torch.log(torch.clamp(gapL, min=1e-300)), 0.0)
+        sU = torch.where(hasU, torch.log(torch.clamp(gapU, min=1e-300)), 0.0)
+        return -mu * (sL.sum(dim=(-2, -1)) + sU.sum(dim=(-2, -1)))
+
+    def al_merit(Z, lam, lam_ref, mu):
+        """Augmented-Lagrangian barrier merit and max |c| over the leading
+        dims of Z [..., N, dz] (mu broadcasts against them)."""
+        f = nlp_total_cost(nlp, Z, None, params)
+        bar = barrier(Z, mu)
+        c = nlp_constraint_residuals(nlp, Z, None, params)
+        ch = c - reg_row * (lam - lam_ref)
+        pen = torch.sum((c * c + ch * ch) / (2.0 * reg_row), dim=(-2, -1)) \
+            + torch.sum(lam_ref * c, dim=(-2, -1))
+        return f + bar + pen, _amax(c)
+
+    c0_init = nlp_constraint_residuals(nlp, Z0, None, params)
+    theta_max = torch.clamp(10.0 * _amax(c0_init), min=1.0)
+
+    def bsum(x):
+        return x.sum(dim=(-2, -1))
+
+    def max_step(gap, d, mask, tau):
+        """Fraction-to-boundary step per leading index (reduces the last
+        two dims); tau broadcasts against the leading dims."""
+        t = tau.view(*tau.shape, 1, 1)
+        ratio = torch.where(mask & (d < 0),
+                            -t * gap / torch.where(d < 0, d, -1.0), INF)
+        return torch.clamp(torch.amin(ratio, dim=(-2, -1)), max=1.0)
+
+    def shift_add(base, add):
+        """base[:, 1:] += add (knot k+1 collects a term of knot k)."""
+        return torch.cat([base[:, :1], base[:, 1:] + add], dim=1)
+
+    def body(s: IPMState) -> IPMState:
+        Z, lam, mu = s.Z, s.lam, s.mu
+        gapL = _safe_gap(Z, lo, hasL)
+        gapU = _safe_gap(hi, Z, hasU)
+
+        grad_z, Cself, Cnext, Hext = _derivatives(nlp, Z, params, lam)
+        c = nlp_constraint_residuals(nlp, Z, None, params)
+        ch = c - reg_row * (lam - s.lam_ref)
+        Cself = Cself * free[:, None, :]
+        Cnext = Cnext * free_next[:, None, :]
+
+        JTlam = shift_add(torch.einsum("bkmz,bkm->bkz", Cself, lam),
+                          torch.einsum("bkmz,bkm->bkz", Cnext[:, :-1], lam[:, :-1]))
+
+        # -- KKT errors / convergence ------------------------------------- #
+        r_dual_z = (grad_z + JTlam - torch.where(hasL, s.zL, 0.0)
+                    + torch.where(hasU, s.zU, 0.0)) * free
+        compL = torch.where(hasL, gapL * s.zL, 0.0)
+        compU = torch.where(hasU, gapU * s.zU, 0.0)
+        err_dual = _amax(r_dual_z)
+        err_prim = _amax(c)
+        err_comp0 = torch.maximum(_amax(compL), _amax(compU))
+        kkt0 = torch.maximum(err_dual, torch.maximum(err_prim, err_comp0))
+        n_duals = N * m + 2 * N * dz + 2
+        dual_mass = bsum(lam.abs()) + bsum(s.zL.abs()) + bsum(s.zU.abs())
+        s_d = torch.clamp(dual_mass / n_duals, min=100.0) / 100.0
+        s_g = torch.clamp(_amax(grad_z), min=1.0)
+        converged = (err_dual / (s_d * s_g) < o.tol) & \
+            (err_prim < o.constr_viol_tol) & \
+            (err_comp0 / (s_d * s_g) < o.tol)
+        f_now = nlp_total_cost(nlp, Z, None, params)
+        acc_now = (err_prim < o.constr_viol_tol) & \
+            (err_dual / (s_d * s_g) < o.acceptable_tol) & \
+            ((f_now - s.f_prev).abs()
+             <= o.acceptable_obj_change * torch.clamp(f_now.abs(), min=1.0))
+        stagnant = torch.where(acc_now, s.stagnant + 1, 0)
+        converged = converged | (stagnant >= o.acceptable_iter)
+        kkt_best = torch.minimum(kkt0, s.kkt_best)
+        window_done = s.no_prog + 1 >= o.stall_iter
+        win_stalled = window_done & (kkt_best > o.stall_ratio * s.kkt_mark)
+        stall_wins = torch.where(
+            window_done, torch.where(win_stalled, s.stall_wins + 1, 0),
+            s.stall_wins)
+        stall_now = (stall_wins >= 2) & (mu <= 1e-3) & (kkt0 <= 3.0 * kkt_best)
+        kkt_mark = torch.where(window_done, kkt_best, s.kkt_mark)
+        no_prog = torch.where(window_done, 0, s.no_prog + 1)
+        stalled = s.stalled | (stall_now & ~converged)
+
+        # -- barrier and proximal-reference update -------------------------- #
+        mu3 = mu[:, None, None]
+        err_comp_mu = torch.maximum(
+            _amax(torch.where(hasL, compL - mu3, 0.0)),
+            _amax(torch.where(hasU, compU - mu3, 0.0)))
+        err_mu = torch.maximum(err_dual / s_d,
+                               torch.maximum(_amax(ch), err_comp_mu / s_d))
+        inner_done = err_mu <= o.kappa_eps * mu
+        mu = torch.where(
+            inner_done,
+            torch.clamp(torch.minimum(o.kappa_mu * mu, mu ** o.theta_mu),
+                        min=o.tol / 10.0),
+            mu)
+        mu3 = mu[:, None, None]
+        inner_best = torch.minimum(err_mu, s.inner_best)
+        iwin_done = s.inner_count + 1 >= o.prox_iter
+        inner_stalled = iwin_done & (inner_best > o.prox_ratio * s.inner_mark)
+        refresh = inner_done | inner_stalled
+        lam_ref = torch.where(refresh[:, None, None], lam, s.lam_ref)
+        ch = torch.where(refresh[:, None, None], c - reg_row * (lam - lam_ref), ch)
+        inner_mark = torch.where(iwin_done, inner_best, s.inner_mark)
+        inner_count = torch.where(iwin_done | inner_done, 0, s.inner_count + 1)
+        inner_best = torch.where(refresh, INF, inner_best)
+        inner_mark = torch.where(refresh, INF, inner_mark)
+
+        # -- KKT matrix blocks --------------------------------------------- #
+        Hext = Hext * free[:, :, None] * free[:, None, :]
+        Hext = Hext + torch.diag_embed(pinf)
+        SigL = torch.where(hasL, s.zL / gapL, 0.0)
+        SigU = torch.where(hasU, s.zU / gapU, 0.0)
+        a = (-grad_z - JTlam + torch.where(hasL, mu3 / gapL, 0.0)
+             - torch.where(hasU, mu3 / gapU, 0.0)) * free
+        Cn = Cnext[:, :-1].contiguous()
+
+        def K_matvec(Wmat, w):                          # w [B, N, mb, r]
+            wz, wl = w[:, :, :dz], w[:, :, dz:]
+            oz = shift_add(Wmat @ wz + Cself.mT @ wl, Cn.mT @ wl[:, :-1])
+            ol = Cself @ wz - reg_row[..., None] * wl
+            ol = torch.cat([ol[:, :-1] + Cn @ wz[:, 1:], ol[:, -1:]], dim=1)
+            return torch.cat([oz, ol], dim=2)
+
+        def kkt_solve(aux, rz, rc):
+            """(rz [B,N,dz], rc [B,N,m]) -> (dZ, dlam); one step of
+            iterative refinement, as the reference takes."""
+            r = torch.cat([rz, rc], dim=2)[..., None]
+            w = condensed_solve(aux["f"], Cself, Cn, r, dz)
+            w = w + condensed_solve(aux["f"], Cself, Cn, r - K_matvec(aux["W"], w), dz)
+            w = w[..., 0]
+            return w[:, :, :dz], w[:, :, dz:]
+
+        def finite(*xs):
+            ok = torch.ones(B, dtype=torch.bool, device=dev)
+            for x in xs:
+                ok = ok & torch.isfinite(x).all(dim=-1).all(dim=-1)
+            return ok
+
+        def keep(ok, x):
+            return torch.where(ok[:, None, None], x, 0.0)
+
+        # -- clamp direction C ---------------------------------------------- #
+        HB = psd_clamp(Hext.contiguous(), hess_floor, iters=clamp_iters,
+                       mode=clamp_mode)
+        WzzC = HB + torch.diag_embed(SigL + SigU)
+        auxC = {"W": WzzC,
+                "f": condensed_factor(WzzC, Cself, reg_b, Cn)}
+        dZC, dlamC = kkt_solve(auxC, a, -ch)
+        okC = finite(dZC, dlamC)
+        dZC, dlamC = keep(okC, dZC), keep(okC, dlamC)
+        aux, dZb, dlamb, okB = auxC, dZC, dlamC, okC
+
+        # -- second-order corrected step S ---------------------------------- #
+        dzL1 = torch.where(hasL, mu3 / gapL - s.zL - SigL * dZb, 0.0)
+        dzU1 = torch.where(hasU, mu3 / gapU - s.zU + SigU * dZb, 0.0)
+        a_corr = a - torch.where(hasL, dZb * dzL1 / gapL, 0.0) \
+            - torch.where(hasU, dZb * dzU1 / gapU, 0.0)
+        c_soc = nlp_constraint_residuals(nlp, Z + dZb, None, params)
+        ch_soc = c_soc - reg_row * (lam + dlamb - lam_ref)
+        JdZ1 = torch.einsum("bkmz,bkz->bkm", Cself, dZb)
+        JdZ1 = torch.cat([JdZ1[:, :-1] + torch.einsum(
+            "bkmz,bkz->bkm", Cnext[:, :-1], dZb[:, 1:]), JdZ1[:, -1:]], dim=1)
+        q2 = ch_soc - ch - (JdZ1 - reg_row * dlamb)
+        dZS, dlamS = kkt_solve(aux, a_corr, -ch - q2)
+        okS = okB & finite(dZS, dlamS)
+        dZS, dlamS = keep(okS, dZS), keep(okS, dlamS)
+
+        # -- AL merit and the parallel Armijo search -------------------------- #
+        tau = torch.clamp(1.0 - mu, min=o.tau_min)
+        w_pen = lam_ref + (c + ch) / reg_row
+        CTw = shift_add(torch.einsum("bkmz,bkm->bkz", Cself, w_pen),
+                        torch.einsum("bkmz,bkm->bkz", Cnext[:, :-1], w_pen[:, :-1]))
+        gradM_z = grad_z - torch.where(hasL, mu3 / gapL, 0.0) \
+            + torch.where(hasU, mu3 / gapU, 0.0) + CTw
+        phi0, _ = al_merit(Z, lam, lam_ref, mu)
+
+        # candidates (S, C); C is the fallback when nothing passes
+        codes = torch.tensor([0.0, 2.0], **kw)
+        dZ2 = torch.stack([dZS, dZC], dim=1)           # [B, 2, N, dz]
+        dlam2 = torch.stack([dlamS, dlamC], dim=1)
+        ok_dir = torch.stack([okS, okC], dim=1)
+        tau2 = tau[:, None].expand(B, 2)
+        ap2 = torch.minimum(max_step(gapL[:, None], dZ2, hasL, tau2),
+                            max_step(gapU[:, None], -dZ2, hasU, tau2))
+        D2 = torch.clamp(bsum(gradM_z[:, None] * dZ2)
+                         - bsum(ch[:, None] * dlam2), max=0.0)
+        alphas2 = ap2[:, :, None] * (0.5 ** torch.arange(o.ls_iters, **kw))
+        al5 = alphas2[..., None, None]                  # [B, 2, L, 1, 1]
+        phis2, thetas2 = al_merit(
+            Z[:, None, None] + al5 * dZ2[:, :, None],
+            lam[:, None, None] + al5 * dlam2[:, :, None],
+            lam_ref[:, None, None], mu[:, None, None])
+        noise = 10.0 * eps * phi0.abs()
+        ok2 = (phis2 <= phi0[:, None, None] + o.armijo_eta * alphas2 * D2[:, :, None]
+               + noise[:, None, None]) \
+            & torch.isfinite(phis2) & (thetas2 <= theta_max[:, None, None])
+        # first accepted step (index 0 when none is)
+        lead_rej = (torch.cumsum(ok2.to(torch.int32), dim=-1) == 0).sum(dim=-1)
+        idx2 = torch.clamp(lead_rej, max=o.ls_iters - 1)
+        any2 = ok2.any(dim=-1)
+        idx2 = torch.where(any2, idx2, 0)
+        alpha2 = torch.where(any2, alphas2.gather(-1, idx2[..., None])[..., 0],
+                             alphas2[..., -1])
+        phi2 = torch.where(any2, phis2.gather(-1, idx2[..., None])[..., 0],
+                           phis2[..., -1])
+
+        # lowest merit among valid candidates, first index on ties; C if none
+        phi3 = torch.where(ok_dir & any2, phi2, INF)
+        best = phi3.amin(dim=1, keepdim=True)
+        pick = ((phi3 == best).to(torch.int32).cumsum(dim=1) == 0).sum(dim=1)
+        pick = torch.where(torch.isinf(best[:, 0]), 1, pick)
+        rows = torch.arange(B, device=dev)
+        delta_used = codes[pick]
+        dZ = dZ2[rows, pick] * free
+        dlam = dlam2[rows, pick]
+        alpha = alpha2[rows, pick]
+
+        # -- bound-dual steps and the dual fraction-to-boundary --------------- #
+        dzL = torch.where(hasL, mu3 / gapL - s.zL - SigL * dZ, 0.0)
+        dzU = torch.where(hasU, mu3 / gapU - s.zU + SigU * dZ, 0.0)
+        alpha_d = torch.minimum(max_step(s.zL, dzL, hasL, tau),
+                                max_step(s.zU, dzU, hasU, tau))
+
+        # -- masked update ------------------------------------------------- #
+        done = converged | stalled
+        step = torch.where(done, 0.0, alpha)[:, None, None]
+        dstep = torch.where(done, 0.0, alpha_d)[:, None, None]
+        Z_new = Z + step * dZ
+        lam_new = lam + step * dlam
+        zL_new = s.zL + dstep * dzL
+        zU_new = s.zU + dstep * dzU
+        gapL_n = _safe_gap(Z_new, lo, hasL)
+        gapU_n = _safe_gap(hi, Z_new, hasU)
+        zL_new = torch.where(hasL, torch.clamp(
+            zL_new, mu3 / (o.kappa_sigma * gapL_n), o.kappa_sigma * mu3 / gapL_n), 0.0)
+        zU_new = torch.where(hasU, torch.clamp(
+            zU_new, mu3 / (o.kappa_sigma * gapU_n), o.kappa_sigma * mu3 / gapU_n), 0.0)
+
+        return IPMState(
+            Z=Z_new, g=s.g, lam=lam_new, lam_ref=lam_ref,
+            zL=zL_new, zU=zU_new, gL=s.gL, gU=s.gU, mu=mu,
+            nu=_amax(lam_ref), it=s.it + 1, converged=converged,
+            kkt_err=kkt0, alpha=alpha,
+            delta_used=delta_used + 100.0 * okC.to(dtype),
+            f_prev=f_now, stagnant=stagnant,
+            kkt_best=kkt_best, kkt_mark=kkt_mark,
+            inner_best=inner_best, inner_mark=inner_mark,
+            inner_count=inner_count, stall_wins=stall_wins,
+            no_prog=no_prog, stalled=stalled,
+            err_prim=err_prim, err_dual=err_dual / s_d)
+
+    return state, body
+
+
+def solve_nlp(nlp: CollocationNLP, params, Z0, g0=None,
+              options: IPMOptions = IPMOptions(), callback=None, mesh=None,
+              resume_from: IPMState | None = None, device=None) -> IPMState:
+    """Solve the collocation NLP for a batch of starting points Z0
+    [B, N, dz] (or one [N, dz]) in the dtype of Z0, on `device` (the card
+    unless the caller passes "cpu"). nlp and params are moved to that
+    device and dtype. Returns the final IPMState."""
+    if callback is not None:
+        raise NotImplementedError("callback")
+    if mesh is not None:
+        raise NotImplementedError("mesh / the knot-sharded backend")
+    device = resolve_device(device)
+    Z0 = torch.as_tensor(Z0).to(device)
+    dtype = Z0.dtype
+    single = Z0.dim() == 2
+    if single:
+        Z0 = Z0[None]
+    nlp = nlp.to(device, dtype)
+    params = params_to(params, device, dtype)
+    state, body = _setup(nlp, params, Z0, g0, options, resume_from=resume_from)
+    while True:
+        active = (state.it < options.max_iter) & ~(state.converged | state.stalled)
+        if not bool(active.any()):
+            break
+        state = body(state).select(active, state)
+    return state.index(0) if single else state

@@ -1,0 +1,194 @@
+"""The port's kernel modules against piccolax, on the CPU in float64.
+
+On a CPU tensor every kernel wrapper runs its plain PyTorch version; the
+same numpy inputs go through the JAX function and the port. Tolerances
+are float64 rounding of different (but equivalent) operation orders.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from piccolax.solver import kkt as jkkt  # noqa: E402
+from piccolax_torch import _kernels  # noqa: E402
+from piccolax_torch.ops import expm as pexpm  # noqa: E402
+from piccolax_torch.solver import kkt as pkkt  # noqa: E402
+
+# piccolax.ops re-exports a function named expm over the module name
+jexpm = importlib.import_module("piccolax.ops.expm")
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
+
+
+def _spd(rng, shape, m, shift=0.5):
+    X = rng.standard_normal((*shape, m, m))
+    A = X @ np.swapaxes(X, -1, -2) / m + shift * np.eye(m)
+    # a wide diagonal range, as barrier terms give the KKT blocks
+    s = np.exp(rng.uniform(-3, 3, (*shape, m)))
+    return A * s[..., :, None] * s[..., None, :]
+
+
+# -- K4: Taylor expm ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("order", [8, 12])
+@pytest.mark.parametrize("n,squarings", [(4, 0), (4, 2), (12, 1)])
+def test_expm_taylor_fixed_matches_jax(order, n, squarings):
+    rng = np.random.default_rng(order * 100 + n + squarings)
+    A = 0.3 * rng.standard_normal((6, n, n))
+    ref = jexpm.expm_taylor_fixed(jnp.asarray(A), order, squarings)
+    got = pexpm.expm_taylor_fixed(torch.as_tensor(A), order, squarings)
+    assert _rel(got.numpy(), ref) < 1e-13
+
+
+def test_expm_derivative_blocks_match_jax_autodiff():
+    """The block-triangular augmentation gives the jacfwd / hessian of the
+    same Taylor approximant (order 12, 2 squarings)."""
+    rng = np.random.default_rng(7)
+    A, E1, E2 = (0.4 * rng.standard_normal((4, 4)) for _ in range(3))
+
+    def f(u):
+        return jexpm.expm_taylor_fixed(
+            jnp.asarray(A) + u[0] * jnp.asarray(E1) + u[1] * jnp.asarray(E2),
+            12, 2)
+
+    u0 = jnp.zeros(2)
+    J = np.asarray(jax.jacfwd(f)(u0))              # [4, 4, 2]
+    H = np.asarray(jax.hessian(f)(u0))             # [4, 4, 2, 2]
+    Phi, dPhi, D2 = pexpm.expm_fixed_derivatives(
+        torch.as_tensor(A), torch.as_tensor(np.stack([E1, E2])), "taylor", 2)
+    assert _rel(Phi.numpy(), f(u0)) < 1e-13
+    assert _rel(np.moveaxis(dPhi.numpy(), 0, -1), J) < 1e-10
+    assert _rel(np.moveaxis(D2.numpy(), (0, 1), (-2, -1)), H) < 1e-10
+
+
+# -- K1: Cholesky-inverse factor ---------------------------------------------
+
+
+@pytest.mark.parametrize("m", [12, 14])
+def test_chol_inv_factor_matches_jax(m):
+    rng = np.random.default_rng(m)
+    A = _spd(rng, (3, 4), m)
+    ref = np.asarray(jkkt.chol_inv_factor(jnp.asarray(A)))
+    got = pkkt.chol_inv_factor(torch.as_tensor(A)).numpy()
+    err = np.max(np.abs(got - ref), axis=(-2, -1)) / np.max(np.abs(ref), axis=(-2, -1))
+    assert np.max(err) < 1e-12
+    assert np.allclose(np.triu(got, 1), 0.0)
+
+
+def test_chol_inv_factor_nan_mask_matches_jax():
+    rng = np.random.default_rng(3)
+    A = _spd(rng, (16,), 14)
+    bad = np.array([1, 4, 5, 11])
+    for k in bad:                                  # indefinite: one negative pivot
+        w, V = np.linalg.eigh(A[k])
+        w[rng.integers(14)] = -abs(w[0]) - 1.0
+        A[k] = (V * w) @ V.T
+    ref = np.asarray(jkkt.chol_inv_factor(jnp.asarray(A)))
+    got = pkkt.chol_inv_factor(torch.as_tensor(A)).numpy()
+    mask_ref = np.isnan(ref).any(axis=(-2, -1))
+    mask_got = np.isnan(got).any(axis=(-2, -1))
+    assert np.array_equal(mask_got, mask_ref)
+    assert set(np.flatnonzero(mask_got)) == set(bad)
+    ok = ~mask_ref
+    assert _rel(got[ok], ref[ok]) < 1e-12
+
+
+def test_chol_inv_factor_float32_zero_diagonal_floor():
+    """sqrt(max(diag, 1e-300)) is max(diag, 0) in float32: a zero diagonal
+    gives NaN, as in JAX's float32 path."""
+    A = np.eye(3, dtype=np.float32)
+    A[1, 1] = 0.0
+    got = pkkt.chol_inv_factor(torch.as_tensor(A)).numpy()
+    ref = np.asarray(jkkt.chol_inv_factor(jnp.asarray(A, jnp.float32)))
+    assert ref.dtype == np.float32
+    assert np.isnan(got).any() and not np.isfinite(ref).all()
+
+
+# -- K2: Newton-Schulz PSD clamp ---------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["pos", "abs"])
+@pytest.mark.parametrize("iters,floor_rel", [(32, 1e-6), (15, 3e-3)])
+def test_psd_clamp_matches_jax(mode, iters, floor_rel):
+    rng = np.random.default_rng(iters)
+    W = rng.standard_normal((5, 14, 14)) * 3.0
+    W = 0.5 * (W + np.swapaxes(W, -1, -2))
+    ref = np.asarray(jkkt.psd_clamp(jnp.asarray(W), floor_rel, iters, mode))
+    got = pkkt.psd_clamp(torch.as_tensor(W), floor_rel, iters, mode).numpy()
+    assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-11
+
+
+# -- K3: condensed KKT by cyclic reduction -----------------------------------
+
+
+@pytest.mark.parametrize("N", [11, 16])
+def test_condensed_factor_and_solve_match_jax(N):
+    rng = np.random.default_rng(N)
+    dz, m = 14, 12
+    P = _spd(rng, (N,), dz, shift=1.0)
+    C = rng.standard_normal((N, m, dz))
+    Cn = rng.standard_normal((N - 1, m, dz))
+    R = np.full((N, m), 1e-3)
+    R[-1] += 1.0
+    rhs = rng.standard_normal((N, dz + m))
+    jf = jax.jit(jkkt.condensed_factor)(*(jnp.asarray(x) for x in (P, C, R, Cn)))
+    ref = np.asarray(jax.jit(jkkt.condensed_solve, static_argnums=4)(
+        jf, jnp.asarray(C), jnp.asarray(Cn), jnp.asarray(rhs), dz))
+    T = [torch.as_tensor(x)[None] for x in (P, C, R, Cn)]
+    pf = pkkt.condensed_factor(*T)
+    got = pkkt.condensed_solve(pf, T[1], T[3],
+                               torch.as_tensor(rhs)[None, ..., None], dz)
+    assert _rel(got[0, ..., 0].numpy(), ref) < 1e-10
+    # the factor itself: knot factors and every level's Cholesky inverse
+    assert _rel(pf[0][0].numpy(), jf[0]) < 1e-10
+    levels, Xi_root = jf[1]
+    cr = pf[1][0].numpy()
+    Np = cr.shape[1]
+    off = 0
+    for Xi_l, Ul, Ur in levels:
+        h = Xi_l.shape[0]
+        for plane, arr in enumerate((Xi_l, Ul, Ur)):
+            assert _rel(cr[plane, off:off + h], arr) < 1e-10
+        off += h
+    assert off == Np - 1
+    assert _rel(cr[0, Np - 1], Xi_root) < 1e-10
+
+
+def test_cr_solve_is_an_exact_solve():
+    """cr_factor/cr_solve (plain) solve an SPD block-tridiagonal system."""
+    rng = np.random.default_rng(5)
+    N, m = 11, 4
+    X = rng.standard_normal((N, m, m))
+    D = X @ np.swapaxes(X, -1, -2) / m + 2.0 * np.eye(m)
+    U = 0.2 * rng.standard_normal((N - 1, m, m))
+    S = np.zeros((N * m, N * m))
+    for k in range(N):
+        S[k * m:(k + 1) * m, k * m:(k + 1) * m] = D[k]
+    for k in range(N - 1):
+        S[k * m:(k + 1) * m, (k + 1) * m:(k + 2) * m] = U[k]
+        S[(k + 1) * m:(k + 2) * m, k * m:(k + 1) * m] = U[k].T
+    b = rng.standard_normal((N, m, 2))
+    cr = pkkt.cr_factor(torch.as_tensor(D), torch.as_tensor(U))
+    x = pkkt.cr_solve(cr, torch.as_tensor(b)).numpy()
+    ref = np.linalg.solve(S, b.reshape(N * m, 2)).reshape(N, m, 2)
+    assert _rel(x, ref) < 1e-10
+
+
+def test_cpu_tensors_launch_nothing():
+    _kernels.reset_launch_counts()
+    A = torch.as_tensor(_spd(np.random.default_rng(0), (2,), 4))
+    pkkt.chol_inv_factor(A)
+    pkkt.psd_clamp(A, 1e-6, 4)
+    pexpm.expm_taylor_fixed(A, 8, 0)
+    assert all(v == 0 for v in _kernels.LAUNCHES.values())
