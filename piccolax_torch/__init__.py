@@ -3,9 +3,10 @@
 The same batched interior-point collocation solver as `piccolax`, written
 with PyTorch tensors and an explicit batch dimension. Every routine that
 `piccolax` shaped for the TPU (the Cholesky-inverse factor, the
-Newton-Schulz PSD clamp, the cyclic-reduction KKT, the Taylor expm) is a
-hand-written CUDA kernel for sm_90a here (`csrc/`), with a plain PyTorch
-version beside it that serves tensors on the CPU.
+Newton-Schulz PSD clamp, the cyclic-reduction KKT, the Taylor expm of the
+collocation residuals, the Pade-13 expm of the rollouts) is a hand-written
+CUDA kernel for sm_90a here (`csrc/`), with a plain PyTorch version beside
+it that serves tensors on the CPU.
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 
@@ -25,10 +26,14 @@ from . import control, quantum, solver  # noqa: E402
 from .benchmarks import sx_gate_problem  # noqa: E402
 from .control import QuantumControlProblem, SmoothPulseProblem, build_nlp  # noqa: E402
 from .convert import nlp_from_numpy  # noqa: E402
+from .ops.expm import expm  # noqa: E402
+from .quantum.dynamics import (unitary_fidelity, unitary_rollout,  # noqa: E402
+                               unitary_rollout_fidelity)
 from .quantum.gates import GATES, PAULIS  # noqa: E402
 from .quantum.pulses import ZeroOrderPulse  # noqa: E402
 from .quantum.systems import QuantumSystem  # noqa: E402
-from .quantum.trajectories import UnitaryTrajectory, discretize  # noqa: E402
+from .quantum.trajectories import (UnitaryTrajectory, discretize,  # noqa: E402
+                                   extract_pulse)
 from .solver import IPMOptions, IPMState, solve_nlp  # noqa: E402
 from .trajectory import KnotLayout, Trajectory  # noqa: E402
 
@@ -36,5 +41,7 @@ __all__ = [
     "GATES", "PAULIS", "IPMOptions", "IPMState", "KnotLayout",
     "QuantumControlProblem", "QuantumSystem", "SmoothPulseProblem",
     "Trajectory", "UnitaryTrajectory", "ZeroOrderPulse", "build_nlp",
-    "discretize", "nlp_from_numpy", "solve_nlp", "sx_gate_problem",
+    "discretize", "expm", "extract_pulse", "nlp_from_numpy", "solve_nlp",
+    "sx_gate_problem", "unitary_fidelity", "unitary_rollout",
+    "unitary_rollout_fidelity",
 ]

@@ -26,12 +26,12 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "load", "build", "check",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "expm_taylor")
+_SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "expm_taylor", "expm_pade13")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"chol_inv_factor": 0, "psd_clamp": 0, "condensed_factor": 0,
-            "condensed_solve": 0, "expm_taylor_fixed": 0}
+            "condensed_solve": 0, "expm_taylor_fixed": 0, "expm_pade13": 0}
 
 _LIBS: dict = {}
 
@@ -50,6 +50,7 @@ _SIGNATURES = {
         "px_condensed_solve_ws": ([_C, _C, _C, _C, _C], _L),
     },
     "expm_taylor": {"px_expm_taylor": ([_C, _P, _P, _L, _C, _C, _C, _P], _C)},
+    "expm_pade13": {"px_expm_pade13": ([_C, _P, _P, _P, _L, _C, _C, _P], _C)},
 }
 
 

@@ -20,12 +20,14 @@ def _seed_pulse(N, T, n_drives, seed=0, scale=0.01):
     return ZeroOrderPulse(us, times), times
 
 
-def sx_gate_problem(N: int = 50, T: float = 10.0, seed: int = 0, **kw):
-    """Config 1: SX gate on a driven qubit."""
+def sx_gate_problem(N: int = 50, T: float = 10.0, seed: int = 0, device=None,
+                    **kw):
+    """Config 1: SX gate on a driven qubit. The seed pulse is rolled out on
+    `device` (the card unless the caller passes "cpu")."""
     sys = QuantumSystem(np.zeros((2, 2)),
                         [PAULIS["X"] / 2, PAULIS["Y"] / 2], 1.0)
     pulse, _ = _seed_pulse(N, T, 2, seed)
-    qtraj = UnitaryTrajectory(sys, pulse, GATES["SX"])
+    qtraj = UnitaryTrajectory(sys, pulse, GATES["SX"], device=device)
     kw.setdefault("Q", 100.0)
     kw.setdefault("R", 1e-2)
     kw.setdefault("du_bound", 0.5)

@@ -5,10 +5,15 @@ Rows are affine in z_{k+1}, as the condensed KKT requires:
 
 - `BilinearUnitaryIntegrator`: U_{k+1} - expm(dt_k G(u_k)) U_k on operator
   iso-vecs. The propagator and its exact first and second derivatives in
-  u come from ONE call of the Taylor expm kernel (K4) on block-triangular
-  augmentations (`ops.expm.expm_fixed_derivatives`): the derivatives of
-  the same approximant that piccolax differentiates with jacfwd/hessian.
-- `DerivativeIntegrator`: u_{k+1} - u_k - dt_k du_k (linear, no kernel).
+  u (and in dt_k when the timestep is a decision variable) come from ONE
+  call of the Taylor expm kernel (K4) on block-triangular augmentations
+  (`ops.expm.expm_fixed_derivatives`): the derivatives of the same
+  approximant that piccolax differentiates with jacfwd/hessian.
+- `DerivativeIntegrator`: u_{k+1} - u_k - dt_k du_k (bilinear, no kernel).
+- `TimeStepsEqualIntegrator`: dt_{k+1} - dt_k (linear, no kernel).
+
+A timestep is a decision variable when its name is in the NLP layout,
+and frozen data otherwise.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 from ..ops.expm import TAYLOR_THETA, expm_fixed, expm_fixed_derivatives
 
 __all__ = ["BilinearUnitaryIntegrator", "DerivativeIntegrator",
-           "choose_squarings"]
+           "TimeStepsEqualIntegrator", "choose_squarings"]
 
 
 def choose_squarings(max_norm: float, order="taylor") -> int:
@@ -85,14 +90,24 @@ class BilinearUnitaryIntegrator:
 
         Returns (Jself [..., K, dim, dz], Jnext [..., K, dim, dz],
         H [..., K, dz, dz]); lam [..., K, dim].
+
+        A = dt G(u) is bilinear in (u, dt): the directions are
+        E_{u_i} = dt G_i and, for a free timestep, E_dt = G(u), and the
+        chain rule adds D Phi[d2A / ddt du_i] = D Phi[G_i] = D Phi[E_{u_i}] / dt
+        to the (dt, u_i) second derivative.
         """
         system = params["system"]
         n, nd = self.levels, system.n_drives
         w = 2 * n
+        dt_free = self.time_name in layout.slices
         dt = get(self.time_name)[..., 0][..., None, None]
-        A = dt * system.G(get(self.drive_name))                 # [..., K, w, w]
+        G = system.G(get(self.drive_name))                      # [..., K, w, w]
+        A = dt * G
         E = dt[..., None, :, :] * system.G_drives               # [..., K, nd, w, w]
+        if dt_free:
+            E = torch.cat([E, G[..., None, :, :]], dim=-3)
         lead = A.shape[:-2]
+        nv = E.shape[-3]
         Phi, dPhi, D2 = expm_fixed_derivatives(A, E, self.order, self.squarings)
 
         Xc = self._cols(get(self.state_name))                   # [..., K, n, w]
@@ -100,21 +115,33 @@ class BilinearUnitaryIntegrator:
         dz = layout.z_dim
         sU = layout.slices[self.state_name]
         su = layout.slices[self.drive_name]
+        cols = list(range(su.start, su.stop))
+        if dt_free:
+            cols += list(range(layout.slices[self.time_name].start,
+                               layout.slices[self.time_name].stop))
+        cols = torch.tensor(cols, device=A.device)
         Jself = A.new_zeros(*lead, self.dim, dz)
         eye_n = torch.eye(n, dtype=A.dtype, device=A.device)
         kron = eye_n[:, None, :, None] * Phi[..., None, :, None, :]
         Jself[..., sU] = -kron.reshape(*lead, self.dim, self.dim)
-        dX = Xc[..., None, :, :] @ dPhi.mT                      # [..., K, nd, n, w]
-        Jself[..., su] = -dX.reshape(*lead, nd, self.dim).mT
+        dX = Xc[..., None, :, :] @ dPhi.mT                      # [..., K, nv, n, w]
+        Jself[..., cols] = -dX.reshape(*lead, nv, self.dim).mT
         Jnext = A.new_zeros(*lead, self.dim, dz)
         Jnext[..., sU] = torch.eye(self.dim, dtype=A.dtype, device=A.device)
 
         H = A.new_zeros(*lead, dz, dz)
-        Huu = -torch.einsum("...ca,...ijab,...cb->...ij", lam_c, D2, Xc)
-        HuU = -(lam_c[..., None, :, :] @ dPhi).reshape(*lead, nd, self.dim)
-        H[..., su, su] = Huu
-        H[..., su, sU] = HuU
-        H[..., sU, su] = HuU.mT
+        Hnl = -torch.einsum("...ca,...ijab,...cb->...ij", lam_c, D2, Xc)
+        if dt_free:
+            # (dt, u_i): lam . D Phi[G_i] X_k with D Phi[G_i] = dPhi[i] / dt,
+            # dt > 0 as discretize requires of the lower bound
+            cross = -torch.einsum("...ca,...iab,...cb->...i", lam_c,
+                                  dPhi[..., :nd, :, :], Xc) / dt[..., 0]
+            Hnl[..., :nd, nd] = Hnl[..., :nd, nd] + cross
+            Hnl[..., nd, :nd] = Hnl[..., nd, :nd] + cross
+        HnU = -(lam_c[..., None, :, :] @ dPhi).reshape(*lead, nv, self.dim)
+        H[..., cols[:, None], cols[None, :]] = Hnl
+        H[..., cols, sU] = HnU
+        H[..., sU, cols] = HnU.mT
         return Jself, Jnext, H
 
 
@@ -133,6 +160,9 @@ class DerivativeIntegrator:
         return getp(self.name) - get(self.name) - dt * get(self.dname)
 
     def derivatives(self, get, getp, params, lam, layout):
+        """Jacobian blocks and the Hessian of lam . rows in z_k; with a free
+        timestep the dt column is -du_k and the (dt, du_i) entries are
+        -lam_i."""
         dt = get(self.time_name)[..., 0]
         lead = torch.broadcast_shapes(dt.shape, lam.shape[:-1])
         kw = dict(dtype=lam.dtype, device=lam.device)
@@ -144,4 +174,32 @@ class DerivativeIntegrator:
         Jself[..., sd] = -dt[..., None, None] * eye
         Jnext = torch.zeros(*lead, self.dim, dz, **kw)
         Jnext[..., s] = eye
+        H = torch.zeros(*lead, dz, dz, **kw)
+        if self.time_name in layout.slices:
+            st = layout.slices[self.time_name]
+            Jself[..., st] = -get(self.dname)[..., None]
+            H[..., sd, st] = -lam[..., None]
+            H[..., st, sd] = -lam[..., None, :]
+        return Jself, Jnext, H
+
+
+class TimeStepsEqualIntegrator:
+    """dt_{k+1} - dt_k (the timesteps of a free-time problem stay equal)."""
+
+    def __init__(self, time_name: str = "dt"):
+        self.time_name = time_name
+        self.dim = 1
+
+    def residual(self, get, getp, params):
+        return getp(self.time_name) - get(self.time_name)
+
+    def derivatives(self, get, getp, params, lam, layout):
+        kw = dict(dtype=lam.dtype, device=lam.device)
+        lead = lam.shape[:-1]
+        dz = layout.z_dim
+        st = layout.slices[self.time_name]
+        Jself = torch.zeros(*lead, 1, dz, **kw)
+        Jself[..., st] = -1.0
+        Jnext = torch.zeros(*lead, 1, dz, **kw)
+        Jnext[..., st] = 1.0
         return Jself, Jnext, torch.zeros(*lead, dz, dz, **kw)

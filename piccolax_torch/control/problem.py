@@ -1,4 +1,4 @@
-"""Problem assembly: trajectory + objectives + integrators -> NLP.
+"""Problem assembly: trajectory + objectives + integrators -> NLP -> solve.
 
 `build_nlp` follows `piccolax.control.problem.build_nlp`: box bounds from
 the trajectory, boundary pins as fixed variables (Ipopt
@@ -6,15 +6,22 @@ fixed_variable_treatment = make_parameter: the IPM gives them no step and
 no barrier, their values come from params["pin_val"]), and the split of
 the knot columns into the ones that reach the matrix exponential (drives,
 timestep) and the ones the residuals are linear in.
+`QuantumControlProblem.solve()` runs the batched IPM on one problem, writes
+the solution back into the trajectory and re-syncs the quantum trajectory
+(extract the pulse, roll it out again on the device).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..quantum import isomorphisms as iso
+from ..quantum.trajectories import extract_pulse
+from ..solver.ipm import IPMOptions, solve_nlp
 from ..solver.nlp import CollocationNLP, params_to
 from ..trajectory import KnotLayout, Trajectory
 
@@ -91,8 +98,18 @@ def build_nlp(traj: Trajectory, objectives, integrators, eq_groups=(),
     return nlp, params, Z0, g0, layout
 
 
+def _writeback(traj: Trajectory, layout: KnotLayout, Z) -> Trajectory:
+    """The trajectory with every NLP component taken from Z [N, dz]."""
+    Z = Z.detach().to("cpu", torch.float64).numpy()
+    data = dict(traj.data)
+    for name, sl in layout.slices.items():
+        data[name] = Z[:, sl]
+    return traj._copy(data=data)
+
+
 class QuantumControlProblem:
-    """A quantum trajectory + the terms of its NLP."""
+    """A quantum trajectory + the terms of its NLP, with solve/sync
+    semantics."""
 
     def __init__(self, qtraj, traj: Trajectory, objectives, integrators,
                  constraints=(), params=None):
@@ -103,6 +120,7 @@ class QuantumControlProblem:
         self.objectives = list(objectives)
         self.integrators = list(integrators)
         self.extra_params = dict(params or {})
+        self.result = None
 
     def build(self, device=None, dtype=torch.float64):
         """Assemble (nlp, params, Z0, g0, layout) on `device`."""
@@ -115,3 +133,60 @@ class QuantumControlProblem:
             for nm, v in params["goal"].items()}
         return build_nlp(self.traj, self.objectives, self.integrators,
                          params=params, device=device, dtype=dtype)
+
+    def solve(self, max_iter: int = 150, tol: float = 1e-7, sync: bool = True,
+              verbose=True, options: IPMOptions | None = None,
+              callback=None, device=None):
+        """Solve the NLP on `device` (the card unless the caller passes
+        "cpu") in float64, write the solution back into the trajectory and
+        re-sync the quantum trajectory (pulse -> rollout)."""
+        if callback is not None:
+            raise NotImplementedError("callback")
+        if verbose == "detailed":
+            raise NotImplementedError("verbose='detailed'")
+        device = resolve_device(device)
+        opts = options or IPMOptions(max_iter=max_iter, tol=tol,
+                                     constr_viol_tol=tol)
+        nlp, params, Z0, _, layout = self.build(device=device)
+        t0 = time.time()
+        state = solve_nlp(nlp, params, Z0, options=opts, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.time()
+        self.result = state
+        self.traj = _writeback(self.traj, layout, state.Z)
+        if sync:
+            self.sync_trajectory(device=device)
+        if verbose:
+            status = "stalled-at-floor" if self.stalled \
+                else f"converged={self.converged}"
+            print(f"[piccolax_torch] IPM: {int(state.it)} iters, "
+                  f"kkt={float(state.kkt_err):.2e}, {status}, "
+                  f"wall={t1 - t0:.2f}s")
+        return self
+
+    def sync_trajectory(self, device=None):
+        """Extract the optimized pulse and roll it out again (on `device`,
+        default the trajectory's own)."""
+        self.qtraj = self.qtraj.rollout(extract_pulse(self.qtraj, self.traj),
+                                        device=device)
+        return self
+
+    @property
+    def pulse(self):
+        return self.qtraj.pulse
+
+    def fidelity(self, **kw):
+        """Rollout fidelity of the quantum trajectory."""
+        return self.qtraj.fidelity(**kw)
+
+    @property
+    def converged(self) -> bool:
+        """True only if the KKT (or acceptable) test passed."""
+        return bool(self.result.converged) if self.result is not None else False
+
+    @property
+    def stalled(self) -> bool:
+        """True if the solve stopped at the dtype's accuracy floor without
+        meeting the KKT tolerance."""
+        return bool(self.result.stalled) if self.result is not None else False

@@ -1,7 +1,7 @@
 """Problem templates: `SmoothPulseProblem`, on the unitary-gate path of
 `piccolax.control.templates` (ZOH pulse, chained derivatives u -> du ->
 ddu, bilinear unitary dynamics, terminal infidelity, quadratic
-regularizers)."""
+regularizers, optionally free and equal timesteps)."""
 
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ __all__ = ["SmoothPulseProblem"]
 def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
                        R_u=None, R_du=None, R_ddu=None,
                        du_bound: float = 1.0, ddu_bound: float = 1.0,
-                       dt_bounds=None,
+                       dt_bounds=None, timesteps_all_equal=None,
                        zero_initial_and_final_derivative=None,
                        state_bound="box", pade_order="taylor",
                        leakage_indices=None, leakage_cost=None,
@@ -25,7 +25,8 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
                        geodesic=None, options=None,
                        extra_objectives=(), extra_constraints=()):
     """Canonical ZOH-pulse collocation problem with smoothness via chained
-    derivative variables du, ddu."""
+    derivative variables du, ddu. With dt_bounds the timesteps are bounded
+    decision variables, held equal unless timesteps_all_equal=False."""
     unported = {
         "free_phase": bool(free_phase),
         "leakage": (leakage_indices is not None or bool(leakage_cost)
@@ -35,7 +36,6 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
         "extra objectives": bool(tuple(extra_objectives)),
         "global bounds": bool(global_bounds),
         "calibration targets": bool(calibration_targets),
-        "free timesteps": dt_bounds is not None,
     }
     for what, asked in unported.items():
         if asked:
@@ -48,7 +48,10 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
     if state_bound == "box":
         state_bound = 1.0
     geodesic = True if geodesic is None else geodesic
-    traj = discretize(qtraj, N, state_bound=state_bound, geodesic=geodesic)
+    timesteps_all_equal = True if timesteps_all_equal is None \
+        else timesteps_all_equal
+    traj = discretize(qtraj, N, dt_bounds=dt_bounds, state_bound=state_bound,
+                      geodesic=geodesic)
     dname = qtraj.drive_name
     traj = traj.add_control_derivatives(
         2, name=dname, bounds=[du_bound, ddu_bound],
@@ -74,6 +77,8 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
     d = traj.dims[dname]
     for a, b in zip(names[:-1], names[1:]):
         integrators.append(intg.DerivativeIntegrator(a, b, d))
+    if dt_bounds is not None and timesteps_all_equal:
+        integrators.append(intg.TimeStepsEqualIntegrator("dt"))
     for Ri, nm in zip((R_u, R_du, R_ddu), names):
         if Ri is not None and Ri != 0:
             objectives.append(obj.QuadraticRegularizer(nm, Ri))

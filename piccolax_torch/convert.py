@@ -1,14 +1,17 @@
-"""Carry a built SX-type problem across as plain numpy arrays.
+"""Carry a built SmoothPulseProblem-type problem across as plain numpy
+arrays.
 
 The arrays take the place of weights: bounds, pins, frozen timesteps, the
 real generator matrices, the goal iso-vec, the objective weights, the
 layout and the static squaring count. `nlp_from_numpy` builds the port's
 NLP from them (for instance from arrays taken out of a `piccolax` build).
 
-Keys: Z0 [N, dz]; lo, hi, pin_mask, pin_val [N, dz]; dt, t [N];
-G_drift [2n, 2n]; G_drives [nd, 2n, 2n]; goal [2n^2]; Q (float);
-R (R_u, R_du, R_ddu); slices {name: (start, stop)} over the knot columns;
-state_name, drive_name (str); squarings (int).
+Keys: Z0 [N, dz]; lo, hi, pin_mask, pin_val [N, dz]; t [N]; dt [N] when
+the timesteps are frozen (a "dt" entry of slices makes them a decision
+variable instead); G_drift [2n, 2n]; G_drives [nd, 2n, 2n]; goal [2n^2];
+Q (float); R (R_u, R_du, R_ddu); slices {name: (start, stop)} over the
+knot columns; state_name, drive_name (str); squarings (int); optional
+timesteps_all_equal (bool, default True: free timesteps held equal).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .control.integrators import BilinearUnitaryIntegrator, DerivativeIntegrator
+from .control.integrators import (BilinearUnitaryIntegrator, DerivativeIntegrator,
+                                  TimeStepsEqualIntegrator)
 from .control.objectives import QuadraticRegularizer, UnitaryInfidelityObjective
 from .quantum.systems import RealGeneratorSystem
 from .solver.nlp import CollocationNLP, params_to
@@ -28,7 +32,7 @@ __all__ = ["nlp_from_numpy"]
 
 def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
     """(nlp, params, Z0, g0, layout) of the port from the arrays of a
-    built SX-type problem (module docstring)."""
+    built problem (module docstring)."""
     device = resolve_device(device)
     a = arrays
     names = list(a["slices"])
@@ -43,11 +47,18 @@ def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
                                              squarings=int(a["squarings"]))]
     integrators += [DerivativeIntegrator(x, y, nd)
                     for x, y in zip(derivs[:-1], derivs[1:])]
+    dt_free = "dt" in layout.slices
+    if dt_free and a.get("timesteps_all_equal", True):
+        integrators.append(TimeStepsEqualIntegrator("dt"))
     objectives = [UnitaryInfidelityObjective(U, Q=float(a["Q"]))]
     objectives += [QuadraticRegularizer(nm, float(R))
                    for nm, R in zip(derivs, a["R"])]
-    nl_cols = list(range(layout.slices[u].start, layout.slices[u].stop))
+    nl_cols = [c for n in names if n in (u, "dt")
+               for c in range(layout.slices[n].start, layout.slices[n].stop)]
     lin_cols = [c for c in range(layout.z_dim) if c not in nl_cols]
+    frozen = {"t": np.asarray(a["t"], float)[:, None]}
+    if not dt_free:
+        frozen["dt"] = np.asarray(a["dt"], float)[:, None]
     nlp = CollocationNLP(
         N=np.asarray(a["Z0"]).shape[0], dz=layout.z_dim,
         md=sum(i.dim for i in integrators), objectives=objectives,
@@ -59,8 +70,7 @@ def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
         "system": RealGeneratorSystem(np.asarray(a["G_drift"], float),
                                       np.asarray(a["G_drives"], float), levels),
         "goal": {U: goal},
-        "frozen": {"dt": np.asarray(a["dt"], float)[:, None],
-                   "t": np.asarray(a["t"], float)[:, None]},
+        "frozen": frozen,
         "pin_val": np.asarray(a["pin_val"], float),
     }, device, dtype)
     Z0 = torch.as_tensor(np.asarray(a["Z0"], float)).to(device, dtype)

@@ -1,20 +1,29 @@
-"""Matrix exponential of the collocation hot path (kernel K4).
+"""Matrix exponentials (kernels K4 and K5).
 
-`expm_taylor_fixed` is the Paterson-Stockmeyer Taylor approximant with a
-static squaring count of `piccolax.ops.expm`: order 8 in float32 and 12
-otherwise. On a CUDA tensor it launches the hand-written kernel
-`csrc/expm_taylor.cu`; on a CPU tensor it runs `expm_taylor_fixed_plain`,
-the same arithmetic in PyTorch.
+- `expm_taylor_fixed` (K4), the collocation hot path: the Paterson-
+  Stockmeyer Taylor approximant with a static squaring count of
+  `piccolax.ops.expm`, order 8 in float32 and 12 otherwise.
+- `expm` (K5), the rollout: scaling-and-squaring Pade-13 with a squaring
+  count per matrix and the denominator inverted by Newton-Schulz.
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(`csrc/expm_taylor.cu`, `csrc/expm_pade13.cu`); on a CPU tensor it runs its
+`*_plain` version, the same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from .. import _kernels
+from .._device import resolve_device
 
 __all__ = ["TAYLOR_THETA", "expm_taylor_fixed", "expm_taylor_fixed_plain",
-           "expm_fixed", "expm_fixed_derivatives"]
+           "expm_fixed", "expm_fixed_derivatives", "expm", "expm_plain",
+           "pade13_squarings", "anti_hermitian_by_squarings"]
 
 _FACT = [1.0]
 for _i in range(1, 14):
@@ -123,3 +132,160 @@ def expm_fixed_derivatives(A, E, order, squarings: int):
     dPhi = R[..., idx, idx, :w, w:2 * w]
     half = R[..., :w, 2 * w:]
     return Phi, dPhi, half + half.transpose(-3, -4)
+
+
+# --------------------------------------------------------------------------- #
+# K5: scaling-and-squaring Pade-13
+# --------------------------------------------------------------------------- #
+
+# Pade-13 coefficients (Higham 2005)
+_B13 = (
+    64764752532480000.0, 32382376266240000.0, 7771770303897600.0,
+    1187353796428800.0, 129060195264000.0, 10559470521600.0, 670442572800.0,
+    33522128640.0, 1323241920.0, 40840800.0, 960960.0, 16380.0, 182.0, 1.0,
+)
+
+# Scaling threshold: the Newton-Schulz inverse of the Pade denominator
+# needs ||A|| <= ~0.95 after scaling (piccolax/ops/expm.py: _THETA13).
+_THETA13 = 0.95
+_INV_THETA13 = 1.0 / _THETA13
+_INV_LN2 = 1.0 / math.log(2.0)
+_NS_ITERS = 8
+_MAX_N_PADE = 16
+
+
+def _ns_solve(Mden, Mnum, b0, iters):
+    """Solve Mden @ F = Mnum by Newton-Schulz: X <- X(2I - Mden X) from
+    X0 = I/b0 (Mden = b0 (I + E) with ||E|| < 1)."""
+    n = Mden.shape[-1]
+    ident = torch.eye(n, dtype=Mden.dtype, device=Mden.device)
+    X = (ident / b0).expand(Mden.shape)
+    for _ in range(iters):
+        X = X @ (2.0 * ident - Mden @ X)
+    return X @ Mnum
+
+
+def _pade13(A):
+    b = _B13
+    n = A.shape[-1]
+    ident = torch.eye(n, dtype=A.dtype, device=A.device)
+    A2 = A @ A
+    A4 = A2 @ A2
+    A6 = A4 @ A2
+    U = A @ (A6 @ (b[13] * A6 + b[11] * A4 + b[9] * A2)
+             + b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * ident)
+    V = (A6 @ (b[12] * A6 + b[10] * A4 + b[8] * A2)
+         + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * ident)
+    return _ns_solve(V - U, V + U, b[0], _NS_ITERS)
+
+
+def pade13_squarings(A, max_squarings: int = 16):
+    """Per-matrix squaring count of `expm`: clamp(ceil(log2(||A||_inf /
+    0.95)), 0, max_squarings), the norm the largest row sum of moduli,
+    all in the real type of A [..., n, n]."""
+    norm = torch.amax(torch.sum(torch.abs(A), dim=-1), dim=-1)
+    # Rounded as the compiled piccolax expression rounds it: the division
+    # by 0.95 is a product with its reciprocal and log2 is log times
+    # 1 / ln 2. torch.log2 takes another count at some norms one ulp from
+    # 0.95 * 2^k; the kernel computes the same expression.
+    x = torch.clamp(norm * _INV_THETA13, min=1e-30)
+    s = torch.clamp(torch.ceil(torch.log(x) * _INV_LN2), min=0.0)
+    return torch.clamp(s, max=float(max_squarings)).to(torch.int32)
+
+
+def anti_hermitian_by_squarings(M: int, n: int, rng, dtype=np.complex128):
+    """M matrices -iH [M, n, n] (numpy, `dtype`) whose inf-norms give
+    `expm` every squaring count 0..16 and the edges between them.
+
+    The first M - 85 are dense, in 18 equal blocks: norm 0.4 (s = 0),
+    0.95 * 2^(s - 1/2) for s = 1..16 (mid-bucket), and 1.5x past the cap.
+    The last 85 are diagonal with an exact norm of 0.95 * 2^k (k = 0..16,
+    in the real type of `dtype`) and up to two ulps either side of it,
+    where a count computed in another precision or with another log2
+    would differ.
+    """
+    rt = np.float64 if np.dtype(dtype) == np.complex128 else np.float32
+    ne = 17 * 5
+    md = M - ne
+    if md < 18:
+        raise ValueError(f"anti_hermitian_by_squarings: M >= {ne + 18} expected")
+    H = rng.standard_normal((md, n, n)) + 1j * rng.standard_normal((md, n, n))
+    dense = -1j * (H + np.conj(np.swapaxes(H, -1, -2)))
+    block = np.arange(md) * 18 // md
+    target = np.where(block == 17, 1.5 * 0.95 * 2.0 ** 16, 0.95 * 2.0 ** (block - 0.5))
+    target[block == 0] = 0.4
+    dense *= (target / np.abs(dense).sum(-1).max(-1))[:, None, None]
+    edge = []
+    for k in range(17):
+        x = rt(0.95) * rt(2.0 ** k)
+        for _ in range(2):
+            x = np.nextafter(x, rt(0))
+        for _ in range(5):
+            edge.append(x)
+            x = np.nextafter(x, rt(np.inf))
+    # moduli of purely imaginary entries and sums with zeros are exact, so
+    # every implementation sees the same norm; the first entry is the largest
+    diag = np.asarray(edge, rt)[:, None] * np.concatenate(
+        [np.ones((ne, 1)), rng.uniform(-1, 1, (ne, n - 1))], 1).astype(rt)
+    A = np.zeros((M, n, n), dtype)
+    A[:md] = dense
+    A[md:, np.arange(n), np.arange(n)] = -1j * diag
+    return A
+
+
+def expm_plain(A, max_squarings: int = 16):
+    """Plain PyTorch version of K5, batched over leading axes."""
+    s = pade13_squarings(A, max_squarings)
+    scale = torch.pow(2.0, -s.to(torch.float64)).to(A.dtype)
+    F = _pade13(A * scale[..., None, None])
+    for i in range(int(s.max()) if s.numel() else 0):
+        F = torch.where((i < s)[..., None, None], F @ F, F)
+    return F
+
+
+def expm(A, max_squarings: int = 16, device=None, *,
+         return_squarings: bool = False):
+    """K5: Pade-13 expm of every [n, n] matrix of a complex64/complex128
+    A [..., n, n] (n <= 16), with its own squaring count per matrix
+    (returned beside the result, int32 [...], with return_squarings).
+
+    Replaces piccolax/ops/expm.py:74 expm (with _pade13 and _ns_solve). A
+    tensor runs where it lies; anything else is moved to `device` (the
+    card unless the caller passes "cpu"). Bound on the H100: float64
+    arithmetic outside the tensor cores (23 + s complex n x n products per
+    matrix, 16 of them the Newton-Schulz inverse, against 2 n^2 values in
+    and out). The kernel keeps the
+    matrix in registers, one thread per matrix, at n = 2 (every rollout of
+    a qubit) and in shared memory, one warp per matrix, up to n = 16.
+    """
+    if not isinstance(A, torch.Tensor):
+        A = torch.as_tensor(A).to(resolve_device(device))
+    if A.dim() < 2 or A.shape[-1] != A.shape[-2] or A.shape[-1] > _MAX_N_PADE:
+        raise ValueError(f"expm: square blocks up to {_MAX_N_PADE} expected, "
+                         f"got {tuple(A.shape)}")
+    if A.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"expm: complex64 or complex128 expected, got {A.dtype}")
+    if not 0 <= max_squarings <= 62:
+        raise ValueError(f"expm: max_squarings {max_squarings} out of range")
+    if A.device.type == "cpu":
+        F = expm_plain(A, max_squarings)
+        return (F, pade13_squarings(A, max_squarings)) if return_squarings else F
+    if A.device.type != "cuda":
+        raise RuntimeError(f"expm: unsupported device {A.device}")
+    if not A.is_contiguous():
+        raise ValueError("expm: contiguous tensor expected")
+    n = A.shape[-1]
+    out = torch.empty_like(A)
+    s = torch.empty(A.shape[:-2], dtype=torch.int32, device=A.device) \
+        if return_squarings else None
+    lib = _kernels.load("expm_pade13")
+    # interleaved (re, im) pairs of the real type
+    rc = lib.px_expm_pade13(int(A.dtype == torch.complex128),
+                            torch.view_as_real(A).data_ptr(),
+                            torch.view_as_real(out).data_ptr(),
+                            s.data_ptr() if s is not None else None,
+                            A.numel() // (n * n), n, max_squarings,
+                            _kernels.stream_handle(A))
+    _kernels.LAUNCHES["expm_pade13"] += 1
+    _kernels.check(rc, "expm")
+    return (out, s) if return_squarings else out

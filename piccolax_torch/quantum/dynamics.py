@@ -1,21 +1,35 @@
-"""Fidelities: complex (host-side numpy) and on real operator iso-vecs
-(torch, batched over leading axes, differentiable by `torch.func`)."""
+"""Fidelities, and the zero-order-hold unitary rollout of
+`piccolax.quantum.dynamics`.
+
+The rollout runs on the device: one Pade-13 expm (kernel K5) per fine
+interval, all intervals of all pulses in one launch, then a log-depth
+scan of small products. Every rollout function takes pulses with leading
+batch axes (values [..., K, d], times [..., K]): the port's written-out
+`vmap` over pulses.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .._device import resolve_device
+from ..ops.expm import expm
+from .pulses import _SNAP_TOL, ZeroOrderPulse
+
 __all__ = ["unitary_fidelity", "iso_vec_inner", "unitary_fidelity_iso",
-           "unitary_fidelity_iso_bounded"]
+           "unitary_fidelity_iso_bounded", "step_propagators",
+           "unitary_rollout", "unitary_rollout_fidelity"]
 
 
 def unitary_fidelity(U, U_goal):
-    """|tr(U' U_goal)|^2 / n^2 (batched over leading axes)."""
-    U = np.asarray(U)
+    """|tr(U' U_goal)|^2 / n^2 (batched over leading axes) of complex
+    tensors; U_goal may be an array, moved to U's device."""
+    U = torch.as_tensor(U)
+    U_goal = torch.as_tensor(U_goal).to(U.device, U.dtype)
     n = U.shape[-1]
-    tr = np.einsum("...ij,...ij->...", np.conj(U), np.asarray(U_goal))
-    return np.abs(tr) ** 2 / n ** 2
+    tr = torch.einsum("...ij,...ij->...", torch.conj(U), U_goal)
+    return torch.abs(tr) ** 2 / n ** 2
 
 
 def iso_vec_inner(x, y):
@@ -44,3 +58,118 @@ def unitary_fidelity_iso_bounded(x_iso, goal_iso):
     re, im = iso_vec_inner(x_iso, goal_iso)
     nrm2 = torch.clamp(torch.sum(x_iso ** 2, dim=-1), min=1e-12)
     return (re ** 2 + im ** 2) / (n * nrm2)
+
+
+# --------------------------------------------------------------------------- #
+# Propagators and the rollout
+# --------------------------------------------------------------------------- #
+
+
+def _zoh_controls(values, ptimes, t):
+    """ZOH pulse samples at times t [..., M]: values[k] with
+    times[k] <= t < times[k+1] (knot-snapped, clipped to the knots), for
+    values [..., K, d] and ptimes [..., K] broadcasting against t."""
+    lead = t.shape[:-1]
+    K, d = values.shape[-2:]
+    ptimes = ptimes.expand(*lead, K).contiguous()
+    idx = torch.searchsorted(ptimes, (t + _SNAP_TOL).contiguous(), right=True) - 1
+    idx = torch.clamp(idx, 0, K - 1)
+    return torch.gather(values.expand(*lead, K, d), -2,
+                        idx[..., None].expand(*idx.shape, d))
+
+
+def _zoh_propagator(system, u, h):
+    """Exact step for piecewise-constant H: expm(-i H(u) h), one K5 launch
+    for every u [..., d] and h [...]."""
+    Hm = system.H(u)
+    return expm(((-1j * h)[..., None, None] * Hm).contiguous())
+
+
+def _substep_grid(times, n_substeps: int):
+    """Refine knot times [..., K] into n_substeps per interval ->
+    [..., (K-1) * S + 1]."""
+    if n_substeps == 1:
+        return times
+    frac = torch.arange(n_substeps, dtype=times.dtype,
+                        device=times.device) / n_substeps
+    t0 = times[..., :-1]
+    dt = times[..., 1:] - times[..., :-1]
+    fine = (t0[..., None] + frac * dt[..., None]).reshape(*times.shape[:-1], -1)
+    return torch.cat([fine, times[..., -1:]], dim=-1)
+
+
+def _pulse_tensors(pulse, device):
+    """(values [..., K, d], times [..., K]) of a ZOH pulse as float tensors."""
+    if not isinstance(pulse, ZeroOrderPulse):
+        raise NotImplementedError("only ZeroOrderPulse rollouts are ported")
+    return (torch.as_tensor(pulse.values).to(device),
+            torch.as_tensor(pulse.times).to(device))
+
+
+def step_propagators(system, pulse, times, method: str = "zoh",
+                     n_substeps: int = 1, device=None):
+    """Per-interval propagators over a (refined) time grid.
+
+    Returns (grid [..., M+1], propagators [..., M, n, n]).
+    """
+    if method != "zoh":
+        raise NotImplementedError(f"rollout method {method!r} (only 'zoh')")
+    device = resolve_device(device)
+    values, ptimes = _pulse_tensors(pulse, device)
+    grid = _substep_grid(torch.as_tensor(times, dtype=ptimes.dtype).to(device),
+                         n_substeps)
+    ta = grid[..., :-1]
+    u = _zoh_controls(values, ptimes, ta)
+    return grid, _zoh_propagator(system, u, grid[..., 1:] - ta)
+
+
+def _cumulative_propagators(props):
+    """P_k = U_k @ ... @ U_0 over axis -3 by a log-depth inclusive scan
+    (later factors on the left, as associative_scan(lambda a, b: b @ a))."""
+    P = props
+    d = 1
+    while d < P.shape[-3]:
+        P = torch.cat([P[..., :d, :, :], P[..., d:, :, :] @ P[..., :-d, :, :]],
+                      dim=-3)
+        d *= 2
+    return P
+
+
+def unitary_rollout(system, pulse, times, method: str | None = None,
+                    n_substeps: int = 1, device=None):
+    """Propagate U(0) = I through the pulse; returns U at each knot time
+    [..., N, n, n] (complex, on `device`: the card unless the caller
+    passes "cpu")."""
+    # a ZOH pulse on an autonomous system (the port's only kind) is "zoh"
+    _, props = step_propagators(system, pulse, times, method or "zoh",
+                                n_substeps, device)
+    cum = _cumulative_propagators(props)
+    n = system.levels
+    U0 = torch.eye(n, dtype=props.dtype, device=props.device)
+    Us = torch.cat([U0.expand(*cum.shape[:-3], 1, n, n), cum], dim=-3)
+    return Us if n_substeps == 1 else Us[..., ::n_substeps, :, :]
+
+
+def unitary_rollout_fidelity(system, us, times, goal,
+                             interpolation: str = "cubic", dus=None,
+                             n_substeps: int = 10, phases=None,
+                             n_qubits=None, device=None):
+    """Re-integrate the dynamics under a ZOH interpolation of the knot
+    controls us [..., N, d] at times [..., N] and return the gate fidelity
+    of the final propagator [...] (the discretization-error check).
+    `dus` is not read by the "constant" interpolation."""
+    if interpolation != "constant":
+        raise NotImplementedError(
+            f"interpolation={interpolation!r} (only 'constant' is ported)")
+    if phases is not None or n_qubits is not None:
+        raise NotImplementedError("free phases")
+    if not isinstance(goal, (np.ndarray, torch.Tensor)):
+        raise NotImplementedError("embedded (subspace) goals")
+    if isinstance(us, torch.Tensor) and device is None:
+        device = us.device
+    device = resolve_device(device)
+    us = torch.as_tensor(us).to(device)
+    times = torch.as_tensor(times, dtype=us.dtype).to(device)
+    Us = unitary_rollout(system, ZeroOrderPulse(us, times), times,
+                         method="zoh", n_substeps=n_substeps, device=device)
+    return unitary_fidelity(Us[..., -1, :, :], goal)

@@ -1,9 +1,12 @@
-"""Control pulses (host-side numpy): the zero-order-hold pulse of the
-SX-gate path, with the interface of `piccolax.quantum.pulses`."""
+"""Control pulses: the zero-order-hold pulse of the port's paths, with the
+interface of `piccolax.quantum.pulses`. Values and times may carry
+leading batch axes (a batch of pulses for one batched rollout); the
+host-side evaluation `__call__` / `sample` is for a single pulse."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["ZeroOrderPulse"]
 
@@ -44,16 +47,22 @@ def _boundary(value, n_drives: int):
     return np.asarray(value, dtype=float)
 
 
+def _as_float(x):
+    return x if isinstance(x, torch.Tensor) else np.asarray(x, dtype=float)
+
+
 class ZeroOrderPulse(_PulseBase):
-    """u(t) = values[k] for t in [times[k], times[k+1]) (knot-snapped)."""
+    """u(t) = values[k] for t in [times[k], times[k+1]) (knot-snapped).
+
+    values [..., K, d] and times [..., K] are numpy arrays or tensors."""
 
     def __init__(self, values, times, drive_name="u",
                  initial_value=None, final_value=None):
-        values = np.asarray(values, dtype=float)
-        times = np.asarray(times, dtype=float)
-        assert values.ndim == 2 and values.shape[0] == times.shape[0], (
-            "values must be [K, n_drives] matching times [K]")
-        d = values.shape[1]
+        values = _as_float(values)
+        times = _as_float(times)
+        assert values.ndim >= 2 and values.shape[-2] == times.shape[-1], (
+            "values must be [..., K, n_drives] matching times [..., K]")
+        d = values.shape[-1]
         self.times = times
         self.values = values
         self.initial_value = _boundary(initial_value, d)
@@ -62,7 +71,7 @@ class ZeroOrderPulse(_PulseBase):
 
     @property
     def duration(self):
-        return self.times[-1]
+        return self.times[..., -1]
 
     @property
     def n_drives(self) -> int:

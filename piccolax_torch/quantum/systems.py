@@ -3,9 +3,11 @@ solver view.
 
     H(u) = H_drift + sum_d u[d] * H_drive_d
 
-The port's slice covers constant drift and linear drive terms; time
+The port covers a constant drift and linear drive terms; time
 modulations, nonlinear drive coefficients and function-based systems
-raise NotImplementedError.
+raise NotImplementedError. `H(u)` builds the complex Hamiltonian on the
+device of u for the rollout; `solver_view()` is the real generator form
+the collocation solver works in.
 """
 
 from __future__ import annotations
@@ -63,11 +65,15 @@ class QuantumSystem:
         self.drive_bounds = normalize_drive_bounds(drive_bounds, self.n_drives)
 
     def H(self, u=None):
-        """Complex Hamiltonian at controls u (host-side)."""
-        u = np.zeros(self.n_drives) if u is None else np.asarray(u)
-        Hm = self.H_drift.copy()
-        for ui, d in zip(u, self.H_drives):
-            Hm = Hm + ui * d
+        """Complex Hamiltonian [..., n, n] at controls u [..., n_drives], a
+        tensor on u's device (complex128 for float64 u, else complex64)."""
+        u = torch.zeros(self.n_drives, dtype=torch.float64) if u is None \
+            else torch.as_tensor(u)
+        cdtype = torch.complex128 if u.dtype == torch.float64 else torch.complex64
+        Hm = torch.as_tensor(self.H_drift).to(u.device, cdtype)
+        Hm = Hm.expand(*u.shape[:-1], *Hm.shape)
+        for i, d in enumerate(self.H_drives):
+            Hm = Hm + u[..., i, None, None] * torch.as_tensor(d).to(u.device, cdtype)
         return Hm
 
     def get_drift(self):

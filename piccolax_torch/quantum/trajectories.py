@@ -1,60 +1,69 @@
-"""Unitary trajectories and their discretization into a knot `Trajectory`
-(host-side numpy and scipy; the interface of
-`piccolax.quantum.trajectories`)."""
+"""Unitary trajectories, their discretization into a knot `Trajectory`
+and pulse extraction; the interface of `piccolax.quantum.trajectories`.
+
+A `UnitaryTrajectory` rolls its pulse out on the device at construction
+(`dynamics.unitary_rollout`, kernel K5); the knot data and the geodesic
+initial guess are host-side numpy and scipy."""
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.linalg
 
+from .._device import resolve_device
 from ..trajectory import Trajectory
 from . import dynamics as dyn
 from . import isomorphisms as iso
 from .pulses import ZeroOrderPulse
 
-__all__ = ["UnitaryTrajectory", "discretize"]
-
-
-def _zoh_rollout(system, pulse, times):
-    """U at each knot time of a ZOH pulse: exact per-interval exponentials
-    composed on the host in float64 (initialization only)."""
-    Us = [np.eye(system.levels, dtype=np.complex128)]
-    for k in range(len(times) - 1):
-        h = times[k + 1] - times[k]
-        Us.append(scipy.linalg.expm(-1j * h * system.H(pulse(times[k])))
-                  @ Us[-1])
-    return np.stack(Us)
+__all__ = ["UnitaryTrajectory", "discretize", "extract_pulse"]
 
 
 class UnitaryTrajectory:
     """Gate synthesis trajectory: system, pulse, goal, and the rollout at
-    the pulse's knot times computed at construction."""
+    the save times computed at construction on `device` (the card unless
+    the caller passes "cpu")."""
 
     state_name = "U"
 
-    def __init__(self, system, pulse, goal):
+    def __init__(self, system, pulse, goal, times=None, n_substeps: int = 1,
+                 method=None, device=None):
         if not isinstance(pulse, ZeroOrderPulse):
             raise NotImplementedError("only ZeroOrderPulse is ported")
         if not isinstance(goal, np.ndarray):
             raise NotImplementedError("embedded (subspace) goals")
+        self.device = resolve_device(device)
         self.system = system
         self.pulse = pulse
         self.goal = np.asarray(goal, dtype=np.complex128)
         self.subspace = None
-        self.times = np.asarray(pulse.knot_times())
-        self.Us = _zoh_rollout(system, pulse, self.times)
+        self.times = np.asarray(pulse.knot_times() if times is None else times)
+        self.Us = dyn.unitary_rollout(system, pulse, self.times, method=method,
+                                      n_substeps=n_substeps, device=self.device)
 
     @property
     def drive_name(self) -> str:
         return self.pulse.drive_name
 
-    def fidelity(self):
+    def fidelity(self, phases=None, n_qubits=None):
+        if phases is not None or n_qubits is not None:
+            raise NotImplementedError("free phases")
         return dyn.unitary_fidelity(self.Us[-1], self.goal)
 
+    def rollout(self, pulse=None, n_substeps: int = 1, method=None,
+                device=None) -> "UnitaryTrajectory":
+        """Re-integrate (optionally with a new pulse) -> fresh trajectory,
+        on `device` (default: this trajectory's)."""
+        pulse = pulse or self.pulse
+        return UnitaryTrajectory(self.system, pulse, self.goal,
+                                 times=pulse.knot_times(), n_substeps=n_substeps,
+                                 method=method, device=device or self.device)
+
     def state_iso(self, times):
-        """Rollout states at the knot times as iso-vecs [T, 2n^2]."""
-        assert np.allclose(np.asarray(times), self.times)
-        return iso.operator_to_iso_vec(self.Us)
+        """Exact rollout states at the given times as iso-vecs [T, 2n^2]."""
+        Us = dyn.unitary_rollout(self.system, self.pulse, np.asarray(times),
+                                 device=self.device)
+        return iso.operator_to_iso_vec(Us.cpu().numpy())
 
     def goal_iso(self):
         return iso.operator_to_iso_vec(self.goal)
@@ -78,9 +87,13 @@ def discretize(qtraj, N_or_times=None, *, dt_bounds=None, state_bound=1.0,
                drive_name=None, geodesic: bool = False):
     """Convert a unitary trajectory into a knot `Trajectory`; with
     geodesic=True the state knots start on the geodesic from I to the
-    goal. Timesteps are frozen data (free timesteps are not ported)."""
-    if dt_bounds is not None:
-        raise NotImplementedError("free timesteps (dt_bounds)")
+    goal. With dt_bounds the timesteps are a bounded control; the
+    accumulated time t stays frozen data (the system is autonomous). Its
+    lower end must be positive: the (dt, u) Hessian entries of the
+    bilinear integrator divide by dt."""
+    if dt_bounds is not None and not float(dt_bounds[0]) > 0.0:
+        raise ValueError(f"discretize: dt_bounds {tuple(dt_bounds)} must have "
+                         "a positive lower end")
     pulse = qtraj.pulse
     duration = float(pulse.duration)
     if N_or_times is None:
@@ -119,8 +132,26 @@ def discretize(qtraj, N_or_times=None, *, dt_bounds=None, state_bound=1.0,
     if fv is not None:
         final[dname] = fv
 
+    controls = (dname,)
     data["dt"] = dts[:, None]
     data["t"] = times[:, None]
-    return Trajectory(data, controls=(dname,), timestep="dt", bounds=bounds,
-                      initial=initial, final=final, goal=goal,
-                      frozen=("dt", "t"))
+    if dt_bounds is not None:
+        bounds["dt"] = np.array([[float(dt_bounds[0]), float(dt_bounds[1])]])
+        controls = controls + ("dt",)
+        frozen = ("t",)
+    else:
+        frozen = ("dt", "t")
+    return Trajectory(data, controls=controls, timestep="dt", bounds=bounds,
+                      initial=initial, final=final, goal=goal, frozen=frozen)
+
+
+def extract_pulse(qtraj, traj: Trajectory):
+    """Rebuild the pulse of the original parameterization (ZOH) from an
+    optimized knot trajectory, at its accumulated knot times."""
+    pulse = qtraj.pulse
+    if not isinstance(pulse, ZeroOrderPulse):
+        raise NotImplementedError("only ZeroOrderPulse is ported")
+    dname = pulse.drive_name
+    return ZeroOrderPulse(traj[dname], traj.get_times(), drive_name=dname,
+                          initial_value=pulse.initial_value,
+                          final_value=pulse.final_value)

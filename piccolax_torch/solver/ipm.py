@@ -13,8 +13,9 @@ parallel Armijo search on an augmented-Lagrangian merit), with the
 - the loop ends when every problem is done or max_iter is reached, with
   one host sync per iteration.
 
-This slice runs kkt_backend="cr" with hess_mode "clamp" or "abs" and no
-exact-Newton candidate; every other option raises NotImplementedError.
+The port runs kkt_backend="cr" with hess_mode "clamp" or "abs", with the
+exact-Newton candidate (newton_dir; on by default in float64) or without
+it; every other option raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -148,16 +149,11 @@ def _derivatives(nlp: CollocationNLP, Z, params, lam):
     return g, Cself, Cnext, 0.5 * (H + H.mT)
 
 
-def _check_options(o: IPMOptions, is_f32: bool):
+def _check_options(o: IPMOptions):
     if o.kkt_backend != "cr":
         raise NotImplementedError(f"kkt_backend={o.kkt_backend!r} (only 'cr')")
     if o.hess_mode not in ("clamp", "abs"):
         raise NotImplementedError(f"hess_mode={o.hess_mode!r}")
-    use_newton = o.newton_dir if o.newton_dir is not None else not is_f32
-    if use_newton:
-        raise NotImplementedError(
-            "the exact-Newton direction (newton_dir; the float64 default) — "
-            "pass newton_dir=False")
 
 
 def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
@@ -173,7 +169,8 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
     dtype, dev = Z0.dtype, Z0.device
     kw = dict(dtype=dtype, device=dev)
     is_f32 = dtype == torch.float32
-    _check_options(o, is_f32)
+    _check_options(o)
+    use_newton = o.newton_dir if o.newton_dir is not None else not is_f32
     delta_c = max(o.delta_c, o.delta_c_f32) if is_f32 else o.delta_c
     hess_floor = max(o.hess_floor, o.hess_floor_f32) if is_f32 else o.hess_floor
     bound_relax = max(o.bound_relax, 1e-4) if is_f32 else o.bound_relax
@@ -363,6 +360,11 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
         def keep(ok, x):
             return torch.where(ok[:, None, None], x, 0.0)
 
+        def curvature_ok(Wmat, dZ_, dlam_):
+            """Finite and dZ^T W dZ >= 1e-9 ||dZ||^2, per problem."""
+            curv = torch.einsum("bkz,bkzy,bky->b", dZ_, Wmat, dZ_)
+            return finite(dZ_, dlam_) & (curv >= 1e-9 * bsum(dZ_ * dZ_))
+
         # -- clamp direction C ---------------------------------------------- #
         HB = psd_clamp(Hext.contiguous(), hess_floor, iters=clamp_iters,
                        mode=clamp_mode)
@@ -372,7 +374,20 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
         dZC, dlamC = kkt_solve(auxC, a, -ch)
         okC = finite(dZC, dlamC)
         dZC, dlamC = keep(okC, dZC), keep(okC, dlamC)
-        aux, dZb, dlamb, okB = auxC, dZC, dlamC, okC
+
+        # -- exact-Newton direction N on the unclamped Hessian ---------------- #
+        # kept where the factorization goes through (no NaN from K1) and the
+        # curvature test passes; the SOC rides its factorization
+        if use_newton:
+            Wzz = (Hext + torch.diag_embed(SigL + SigU)).contiguous()
+            auxN = {"W": Wzz, "f": condensed_factor(Wzz, Cself, reg_b, Cn)}
+            dZN, dlamN = kkt_solve(auxN, a, -ch)
+            okN = curvature_ok(Wzz, dZN, dlamN)
+            dZN, dlamN = keep(okN, dZN), keep(okN, dlamN)
+            aux, dZb, dlamb, okB = auxN, dZN, dlamN, okN
+        else:
+            okN = torch.zeros(B, dtype=torch.bool, device=dev)
+            aux, dZb, dlamb, okB = auxC, dZC, dlamC, okC
 
         # -- second-order corrected step S ---------------------------------- #
         dzL1 = torch.where(hasL, mu3 / gapL - s.zL - SigL * dZb, 0.0)
@@ -398,18 +413,24 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
             + torch.where(hasU, mu3 / gapU, 0.0) + CTw
         phi0, _ = al_merit(Z, lam, lam_ref, mu)
 
-        # candidates (S, C); C is the fallback when nothing passes
-        codes = torch.tensor([0.0, 2.0], **kw)
-        dZ2 = torch.stack([dZS, dZC], dim=1)           # [B, 2, N, dz]
-        dlam2 = torch.stack([dlamS, dlamC], dim=1)
-        ok_dir = torch.stack([okS, okC], dim=1)
-        tau2 = tau[:, None].expand(B, 2)
+        # candidates (S, N, C) with codes 0, 1, 2; the last is the fallback
+        # when nothing passes
+        dirs = [(dZS, dlamS, okS, 0.0)]
+        if use_newton:
+            dirs.append((dZN, dlamN, okN, 1.0))
+        dirs.append((dZC, dlamC, okC, 2.0))
+        nd_ = len(dirs)
+        codes = torch.tensor([d[3] for d in dirs], **kw)
+        dZ2 = torch.stack([d[0] for d in dirs], dim=1)     # [B, nd, N, dz]
+        dlam2 = torch.stack([d[1] for d in dirs], dim=1)
+        ok_dir = torch.stack([d[2] for d in dirs], dim=1)
+        tau2 = tau[:, None].expand(B, nd_)
         ap2 = torch.minimum(max_step(gapL[:, None], dZ2, hasL, tau2),
                             max_step(gapU[:, None], -dZ2, hasU, tau2))
         D2 = torch.clamp(bsum(gradM_z[:, None] * dZ2)
                          - bsum(ch[:, None] * dlam2), max=0.0)
         alphas2 = ap2[:, :, None] * (0.5 ** torch.arange(o.ls_iters, **kw))
-        al5 = alphas2[..., None, None]                  # [B, 2, L, 1, 1]
+        al5 = alphas2[..., None, None]                  # [B, nd, L, 1, 1]
         phis2, thetas2 = al_merit(
             Z[:, None, None] + al5 * dZ2[:, :, None],
             lam[:, None, None] + al5 * dlam2[:, :, None],
@@ -432,7 +453,7 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
         phi3 = torch.where(ok_dir & any2, phi2, INF)
         best = phi3.amin(dim=1, keepdim=True)
         pick = ((phi3 == best).to(torch.int32).cumsum(dim=1) == 0).sum(dim=1)
-        pick = torch.where(torch.isinf(best[:, 0]), 1, pick)
+        pick = torch.where(torch.isinf(best[:, 0]), nd_ - 1, pick)
         rows = torch.arange(B, device=dev)
         delta_used = codes[pick]
         dZ = dZ2[rows, pick] * free
@@ -465,7 +486,7 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
             zL=zL_new, zU=zU_new, gL=s.gL, gU=s.gU, mu=mu,
             nu=_amax(lam_ref), it=s.it + 1, converged=converged,
             kkt_err=kkt0, alpha=alpha,
-            delta_used=delta_used + 100.0 * okC.to(dtype),
+            delta_used=delta_used + 10.0 * okN.to(dtype) + 100.0 * okC.to(dtype),
             f_prev=f_now, stagnant=stagnant,
             kkt_best=kkt_best, kkt_mark=kkt_mark,
             inner_best=inner_best, inner_mark=inner_mark,

@@ -74,6 +74,14 @@ class Trajectory:
             return self.data[self.timestep][:, 0]
         return np.full(self.N, float(self.timestep))
 
+    def __getitem__(self, name: str):
+        return self.data[name]
+
+    def get_times(self):
+        """Accumulated knot times [N], t_0 = 0."""
+        dts = self.get_timesteps()
+        return np.concatenate([np.zeros(1, dts.dtype), np.cumsum(dts[:-1])])
+
     def add_component(self, name: str, values, *, control: bool = False,
                       bound=None, initial=None, final=None) -> "Trajectory":
         values = np.asarray(values, dtype=float)

@@ -76,7 +76,7 @@ def problem_arrays(prob):
 @pytest.fixture(scope="module")
 def arrays():
     return (_jax_arrays(jbm.sx_gate_problem(N=N, T=T)),
-            problem_arrays(pt.sx_gate_problem(N=N, T=T)))
+            problem_arrays(pt.sx_gate_problem(N=N, T=T, device="cpu")))
 
 
 @pytest.mark.parametrize("key", ["Z0", "lo", "hi", "pin_mask", "pin_val", "dt",
@@ -101,7 +101,7 @@ def test_data_layer_structure_matches_jax(arrays, key):
 def test_sx_config1_shapes_and_squarings():
     """Config 1: N = 50, dz = 14 (U 8, u 2, du 2, ddu 2), m = 12; the
     feasible-box bound dt * ||H|| = 10/49 keeps the Taylor squarings at 0."""
-    a = problem_arrays(pt.sx_gate_problem())
+    a = problem_arrays(pt.sx_gate_problem(device="cpu"))
     assert a["Z0"].shape == (50, 14)
     assert a["slices"] == {"U": (0, 8), "u": (8, 10), "du": (10, 12),
                            "ddu": (12, 14)}
@@ -112,7 +112,8 @@ def test_sx_config1_shapes_and_squarings():
 def test_nlp_from_numpy_matches_own_build(arrays):
     """Arrays taken from piccolax give the NLP the port builds itself."""
     ref, _ = arrays
-    nlp, params, Z0, _, _ = pt.sx_gate_problem(N=N, T=T).build(device="cpu")
+    nlp, params, Z0, _, _ = pt.sx_gate_problem(N=N, T=T, device="cpu").build(
+        device="cpu")
     nlp2, params2, Z02, _, _ = nlp_from_numpy(ref, device="cpu")
     assert torch.equal(Z0, Z02)
     rng = np.random.default_rng(2)
@@ -180,7 +181,9 @@ def test_port_sources_import_no_jax():
 def test_entry_points_without_device_raise_without_a_card(arrays):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
-    prob = pt.sx_gate_problem(N=N, T=T)
+    with pytest.raises(RuntimeError):
+        pt.sx_gate_problem(N=N, T=T)
+    prob = pt.sx_gate_problem(N=N, T=T, device="cpu")
     with pytest.raises(RuntimeError):
         prob.build()
     with pytest.raises(RuntimeError):
@@ -195,11 +198,12 @@ def test_entry_points_without_device_raise_without_a_card(arrays):
 
 @pytest.mark.parametrize("opts", [
     dict(kkt_backend="qd"), dict(kkt_backend="native"),
-    dict(hess_mode="shift"), dict(newton_dir=True),
-    dict(newton_dir=None),               # float64 default turns Newton on
+    dict(hess_mode="shift"), dict(kkt_backend="knot"),
+    dict(hess_mode="shift", newton_dir=None),
 ])
 def test_unported_solver_options_raise(opts):
-    nlp, params, Z0, _, _ = pt.sx_gate_problem(N=N, T=T).build(device="cpu")
+    nlp, params, Z0, _, _ = pt.sx_gate_problem(N=N, T=T, device="cpu").build(
+        device="cpu")
     o = {"newton_dir": False, **opts}
     with pytest.raises(NotImplementedError):
         pt.solve_nlp(nlp, params, Z0[None], options=pt.IPMOptions(**o),
@@ -209,7 +213,8 @@ def test_unported_solver_options_raise(opts):
 @pytest.mark.parametrize("kw", [dict(callback=print), dict(resume_from=object()),
                                 dict(g0=torch.zeros(1, 1))])
 def test_unported_solve_arguments_raise(kw):
-    nlp, params, Z0, _, _ = pt.sx_gate_problem(N=N, T=T).build(device="cpu")
+    nlp, params, Z0, _, _ = pt.sx_gate_problem(N=N, T=T, device="cpu").build(
+        device="cpu")
     with pytest.raises(NotImplementedError):
         pt.solve_nlp(nlp, params, Z0[None], device="cpu",
                      options=pt.IPMOptions(newton_dir=False), **kw)
@@ -218,8 +223,8 @@ def test_unported_solve_arguments_raise(kw):
 @pytest.mark.parametrize("kw", [
     dict(free_phase=True), dict(leakage_cost=1.0), dict(leakage_indices=[1]),
     dict(options=object()), dict(extra_constraints=[object()]),
-    dict(dt_bounds=(0.1, 0.3)), dict(global_bounds={"x": (0, 1)}),
+    dict(pade_order=7), dict(global_bounds={"x": (0, 1)}),
 ])
 def test_unported_template_options_raise(kw):
     with pytest.raises(NotImplementedError):
-        pt.sx_gate_problem(N=N, T=T, **kw)
+        pt.sx_gate_problem(N=N, T=T, device="cpu", **kw)

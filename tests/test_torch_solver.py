@@ -31,13 +31,36 @@ def _rel(a, b):
 @pytest.fixture(scope="module")
 def problems():
     jnlp, jparams, jZ0, jg0, jlay = jbm.sx_gate_problem(N=N, T=T).build()
-    nlp, params, Z0, _, lay = pt.sx_gate_problem(N=N, T=T).build(device="cpu")
+    nlp, params, Z0, _, lay = pt.sx_gate_problem(N=N, T=T, device="cpu").build(
+        device="cpu")
     rng = np.random.default_rng(11)
     Zb = np.repeat(np.asarray(jZ0)[None], B, 0)
     u = jlay.slices["u"]
     Zb[:, :, u] += 0.02 * rng.standard_normal((B, N, u.stop - u.start))
     return dict(jnlp=jnlp, jparams=jparams, jg0=jg0, nlp=nlp, params=params,
                 layout=lay, Zb=Zb, rng=rng)
+
+
+@pytest.fixture(scope="module")
+def jax_solves(problems):
+    """piccolax's IPM on each problem of the batch, one at a time as a
+    vmapped while_loop runs it: the first five iterates and the final
+    state (one jitted body per problem, shared by the tests below)."""
+    p = problems
+    jopts = jipm.IPMOptions(**OPTS)
+    out = []
+    for b in range(B):
+        s, jbody = jipm._setup(p["jnlp"], p["jparams"], jnp.asarray(p["Zb"][b]),
+                               None, jopts)
+        jbody = jax.jit(jbody)
+        first = []
+        while int(s.it) < jopts.max_iter and not (bool(s.converged)
+                                                  or bool(s.stalled)):
+            s = jbody(s)
+            if len(first) < 5:
+                first.append(s)
+        out.append((first, s))
+    return out
 
 
 def test_residuals_and_cost_match_jax(problems):
@@ -79,32 +102,22 @@ def test_gradients_and_hessians_match_jax(problems):
     assert np.max(np.abs(g.numpy() - np.asarray(gz))) < 1e-10
 
 
-def test_first_iterates_match_jax(problems):
+def test_first_iterates_match_jax(problems, jax_solves):
     """Five IPM iterations, batched in the port and one problem at a time
     in piccolax: Z, lam and mu agree to 1e-8 relative."""
     p = problems
-    jopts = jipm.IPMOptions(**OPTS)
     state, body = pipm._setup(p["nlp"], p["params"], torch.as_tensor(p["Zb"]),
                               None, pipm.IPMOptions(**OPTS))
-    ref = []
-    for b in range(B):
-        st, jbody = jipm._setup(p["jnlp"], p["jparams"], jnp.asarray(p["Zb"][b]),
-                                None, jopts)
-        jbody = jax.jit(jbody)
-        traj = []
-        for _ in range(5):
-            st = jbody(st)
-            traj.append(st)
-        ref.append(traj)
     for it in range(5):
         state = body(state)
         for b in range(B):
+            ref = jax_solves[b][0][it]
             for name in ("Z", "lam", "mu"):
                 assert _rel(getattr(state, name)[b].numpy(),
-                            getattr(ref[b][it], name)) < 1e-8, (it, b, name)
+                            getattr(ref, name)) < 1e-8, (it, b, name)
 
 
-def test_batched_solve_matches_jax(problems):
+def test_batched_solve_matches_jax(problems, jax_solves):
     """The whole batched solve: per-problem converged flags as the vmapped
     while_loop gives them, and the final-knot fidelity to 1e-6."""
     p = problems
@@ -112,16 +125,10 @@ def test_batched_solve_matches_jax(problems):
     st = pt.solve_nlp(p["nlp"], p["params"], torch.as_tensor(p["Zb"]),
                       options=pt.IPMOptions(**OPTS), device="cpu")
     assert all(v == 0 for v in _kernels.LAUNCHES.values())
-    jopts = jipm.IPMOptions(**OPTS)
     U = p["layout"].slices["U"]
     goal = p["params"]["goal"]["U"]
     for b in range(B):
-        s, jbody = jipm._setup(p["jnlp"], p["jparams"], jnp.asarray(p["Zb"][b]),
-                               None, jopts)
-        jbody = jax.jit(jbody)
-        while int(s.it) < jopts.max_iter and not (bool(s.converged)
-                                                  or bool(s.stalled)):
-            s = jbody(s)
+        s = jax_solves[b][1]
         assert bool(st.converged[b]) == bool(s.converged)
         assert int(st.it[b]) == int(s.it)
         F_ref = unitary_fidelity_iso(torch.as_tensor(np.array(s.Z[-1, U])), goal)
