@@ -12,20 +12,29 @@ fatal on failure:
    kernel, the plain version and a yardstick PyTorch library call: K1-K4
    at the config-1 shapes in float32 and at the quickstart shapes in
    float64, K5 (Pade-13 expm) on complex128 and complex64 rollouts with
-   every squaring count 0..16;
+   every squaring count 0..16, K6 (fixed-order Pade expm, orders 3-9) at
+   the Pade quickstart's residual and derivative shapes, K7 (the qd KKT
+   factor and solve, with one indefinite block whose NaNs must stay in
+   its problem) at the quickstart's and config 1's shapes, and K8 (the
+   lower-triangular inverse, on no solve path) at [25600, 16 | 32, 16 | 32];
 4. config 1: the SX gate (N = 50, T = 10) at B = 256 in float32, gated
    with a float64 DOP853 re-integration;
 5. quickstart: docs/quickstart.py steps 1-5 (N = 100, T = 10, free
    timesteps) through the port's entry points in float64, B = 1;
 6. batched quickstart: the same problem at B = 256 with perturbed pulses
    in one batched float64 solve, then one batched rollout of every
-   extracted pulse.
+   extracted pulse;
+7. Pade/qd quickstart: phase 5 with SmoothPulseProblem(pade_order=7) and
+   IPMOptions(kkt_backend="qd");
+8. batched Pade/qd quickstart: phase 6 with the same two options;
+9. config 1 on the qd backend: phase 4 with kkt_backend="qd".
 
-Each of 4-6 resets every launch counter just before it and reads them
-just after, and fails if a kernel of its path was not launched. Prints
+Each of 4-9 resets every launch counter just before it and reads them
+just after, and fails if a kernel of its path was not launched or a
+kernel of the other path was (no fallback). Prints
 the {"kernels": [...]} record, then as the last line {"ok": true,
 "device": {...}}. Exits nonzero, with no result line, without a card or
-when any phase fails. ``--profile`` also profiles config 1 and both
+when any phase fails. ``--profile`` also profiles config 1 and the four
 quickstart solves.
 """
 
@@ -39,9 +48,11 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): outside the tensor cores
-H100_FLOPS = {"float32": 67e12, "float64": 34e12}
+# H100 SXM peaks for each type (NVIDIA data sheet, 700 W): float32
+# outside the tensor cores, float64 through them (DMMA; 34e12 outside)
+H100_FLOPS = {"float32": 67e12, "float64": 67e12}
 H100_BYTES_PER_S = 3.35e12  # HBM3
+SECTOR = 32  # bytes, the least a read from device memory moves
 
 QS_N, QS_T, QS_B = 100, 10.0, 256
 
@@ -56,6 +67,17 @@ def _bound(flops, nbytes, real="float32"):
     t_ops = flops / H100_FLOPS[real]
     t_bytes = nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _lower_tri_bytes(m, es):
+    """Bytes of the sectors that hold the lower triangle of one row-major
+    m x m matrix of es-byte entries that starts on a sector boundary."""
+    total = 0
+    for i in range(m):
+        first = i * m * es
+        last = first + (i + 1) * es - 1
+        total += (last // SECTOR - first // SECTOR + 1) * SECTOR
+    return total
 
 
 def _sync():
@@ -310,6 +332,224 @@ def check_expm_pade13(record, reps=20):
            extra={"variants": sub})
 
 
+def _pade_fixed_flops(n, order, sq):
+    """Real operations of K6 on one real n x n matrix, counted from its
+    body: (order - 1) / 2 products for the even powers, 1 for U, 12 for
+    the 6 Newton-Schulz steps, 1 for the numerator and sq squarings,
+    2n^3 - n^2 each; per entry the scaling, 4 per even power for the sums
+    of U and V, 2 for V -/+ U and 1 per Newton-Schulz step for 2I - R.
+    The 12 Newton-Schulz products are the algorithm's, not the function's:
+    a pivoted solve would take about one product's work."""
+    ev = (order - 1) // 2
+    return (ev + 14 + sq) * (2 * n ** 3 - n * n) + (9 + 4 * ev) * n * n
+
+
+def check_expm_pade_fixed(record, reps=20):
+    """Phase 3, K6: the fixed-order Pade expm against its plain version
+    on the Pade quickstart's residuals [256 * 99, 4, 4] and derivative
+    augmentations [256 * 99 * 9, 12, 12], orders 3, 5, 7 and 9, float64
+    and float32, s in {0, 2}, every inf-norm at half the order's radius
+    times 2^s (near order 9's radius of 2.1 the 6 Newton-Schulz steps do
+    not converge on 4 x 4 matrices, in piccolax as here). Timed: order 7,
+    s = 0 (the quickstart's), both sizes and types; the 4 x 4 float64 row
+    is the kernel's record."""
+    import torch
+    from piccolax_torch.ops import expm as ex
+
+    rng = np.random.default_rng(11)
+    tol = {"float64": 1e-12, "float32": 1e-5}
+    main, sub = None, {}
+    for n, M in ((4, QS_B * (QS_N - 1)), (12, QS_B * (QS_N - 1) * 9)):
+        A0 = rng.standard_normal((M, n, n))
+        A0 /= np.abs(A0).sum(-1).max(-1)[:, None, None]      # inf-norm 1
+        for real in ("float64", "float32"):
+            dt_ = getattr(torch, real)
+            es = 8 if real == "float64" else 4
+            errs = []
+            for order in (3, 5, 7, 9):
+                for sq in (0, 2):
+                    A = torch.as_tensor(0.5 * ex.pade_radius(order) * 2.0 ** sq * A0,
+                                        dtype=dt_, device="cuda")
+                    err, rel = _rel_err(ex.expm_pade_fixed(A, order, sq),
+                                        ex.expm_pade_fixed_plain(A, order, sq))
+                    _check(rel < tol[real], f"expm_pade_fixed order {order} s={sq} "
+                           f"[{M},{n},{n}] {real}: rel err {rel:.3e}")
+                    errs.append(err)
+            A = torch.as_tensor(0.5 * ex.pade_radius(7) * A0, dtype=dt_, device="cuda")
+            ms = _time_ms(lambda: ex.expm_pade_fixed(A, 7, 0), reps)
+            plain_ms = _time_ms(lambda: ex.expm_pade_fixed_plain(A, 7, 0), reps)
+            lib_ms = _time_ms(lambda: torch.linalg.matrix_exp(A), reps)
+            b_ms, b_by = _bound(M * _pade_fixed_flops(n, 7, 0), 2 * M * n * n * es,
+                                real)
+            key = f"[{M},{n},{n}] {real}"
+            print(f"expm_pade_fixed {key}: max_err={max(errs):.3e} (orders 3-9, "
+                  f"s 0 and 2; tol {tol[real]:.0e} relative), order 7 s=0 "
+                  f"kernel_ms={ms:.4f}, plain_ms={plain_ms:.4f}, library_ms="
+                  f"{lib_ms:.4f} (matrix_exp), bound_ms={b_ms:.4f} ({b_by})",
+                  flush=True)
+            row = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            if main is None:
+                main = (key, row)
+            else:
+                sub[key] = row
+    key, row = main
+    record("expm_pade_fixed", "piccolax_torch/csrc/expm_pade_fixed.cu",
+           "piccolax/ops/expm.py:105", row["max_abs_err"], row["ms"],
+           row["plain_ms"], (row["bound_ms"], row["bound_by"]), row["library_ms"],
+           "1e-12 (f64) / 1e-5 (f32) relative, orders 3-9, s 0 and 2",
+           shape=f"{key}, order 7, s=0", extra={"variants": sub})
+
+
+def _qd_inputs(B, N, dz, m, dtype, rng, bad=None):
+    """KKT blocks of the qd backend on the card: P PD (one indefinite
+    block at bad = (problem, knot)), C and Cnext 0.3 N(0, 1), R 1e-3 as
+    K3's check takes it, plus 1 at the last knot's empty rows. (With the
+    float64 IPM's 1e-8 the N = 100 system's condition number amplifies
+    rounding to ~1e-6 relative between any two implementations.)"""
+    import torch
+    X = rng.standard_normal((B, N, dz, dz))
+    P = X @ np.swapaxes(X, -1, -2) / dz + \
+        np.eye(dz) * rng.uniform(0.5, 5.0, (B, N, 1, 1))
+    if bad is not None:
+        P[bad] -= 20.0 * np.eye(dz)
+    R = np.full((B, N, m), 1e-3)
+    R[:, -1] += 1.0
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x),
+                               dtype=getattr(torch, dtype), device="cuda")
+
+    return (t(P), t(0.3 * rng.standard_normal((B, N, m, dz))), t(R),
+            t(0.3 * rng.standard_normal((B, N - 1, m, dz))),
+            t(rng.standard_normal((B, N, dz + m, 1))))
+
+
+def check_qd(B, N, dz, m, dtype, record, reps=20):
+    """Phase 3, K7: the qd factor and solve against their plain versions
+    at the shapes of a path; problem 3 has an indefinite P block at knot
+    N // 2 + 1, which must give NaN from that knot on in that problem only
+    (the same [B, N] mask as the plain version) and leave the others
+    finite. Timed on the inputs without the indefinite block, and in
+    float64 also on its first problem alone (the single quickstart's
+    B = 1, where a launch is the recursion's latency)."""
+    import torch
+    from piccolax_torch.solver import kkt
+
+    f64 = dtype == "float64"
+    es = 8 if f64 else 4
+    tol = 1e-9 if f64 else 1e-3
+    rng = np.random.default_rng(21 if f64 else 22)
+    kb = N // 2 + 1
+    P, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng, bad=(3, kb))
+    fk = kkt.qd_factor(P, C, R, Cn)
+    fp = kkt.qd_factor_plain(P, C, R, Cn)
+    for a, b_, what in ((fk[0], fp[0], "Pinv"), (fk[1], fp[1], "Sinv")):
+        nan_k = torch.isnan(a).any(-1).any(-1)
+        _check(torch.equal(nan_k, torch.isnan(b_).any(-1).any(-1)),
+               f"qd_factor {what} ({dtype}): NaN mask differs from the plain version")
+        want = torch.zeros_like(nan_k)
+        want[3, kb:] = True
+        _check(torch.equal(nan_k, want), f"qd_factor {what} ({dtype}): NaN not "
+               f"exactly in problem 3 from knot {kb} on")
+    xk = kkt.qd_solve(fk, C, Cn, rhs, dz)
+    xp = kkt.qd_solve_plain(fp, C, Cn, rhs, dz)
+    nan_s = torch.isnan(xk).flatten(1).any(1)
+    _check(torch.equal(nan_s, torch.isnan(xp).flatten(1).any(1)),
+           f"qd_solve ({dtype}): NaN mask differs from the plain version")
+    _check(nan_s.sum().item() == 1 and bool(nan_s[3]),
+           f"qd_solve ({dtype}): NaN outside problem 3")
+    _check(bool(torch.isfinite(xk[nan_s.logical_not()]).all()),
+           f"qd_solve ({dtype}): non-finite values in healthy problems")
+
+    P, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng)
+    fk = kkt.qd_factor(P, C, R, Cn)
+    fp = kkt.qd_factor_plain(P, C, R, Cn)
+    err_f = 0.0
+    for a, b_, what in ((fk[0], fp[0], "Pinv"), (fk[1], fp[1], "Sinv")):
+        _check(bool(torch.isfinite(a).all()), f"qd_factor {what} ({dtype}) not finite")
+        e, rel = _rel_err(a, b_)
+        _check(rel < tol, f"qd_factor {what} ({dtype}) rel err {rel:.3e}")
+        err_f = max(err_f, e)
+    xk = kkt.qd_solve(fk, C, Cn, rhs, dz)
+    err_s, rel = _rel_err(xk, kkt.qd_solve_plain(fp, C, Cn, rhs, dz))
+    _check(rel < tol, f"qd_solve ({dtype}) rel err {rel:.3e}")
+    f_flops = B * N * (2 * m * m * dz + 4 * dz * dz * m + 2 * m * m * dz
+                       + (8 * dz ** 3 + 8 * m ** 3) // 3 + 2 * m * m)
+    f_bytes = es * B * (2 * N * dz * dz + N * m * dz + N * m + (N - 1) * m * dz
+                        + N * m * m)
+    s_flops = B * N * (6 * dz * dz + 10 * m * dz + 4 * m * m)
+    s_bytes = es * B * (N * dz * dz + N * m * m + N * m * dz + (N - 1) * m * dz
+                        + 2 * N * (dz + m))
+    shape = f"B={B}, N={N}, dz={dz}, m={m} {dtype}"
+    note = f"{tol:.0e} relative; NaN mask of one indefinite block equal"
+    b1 = ({}, {})
+    if f64:
+        P1, C1, R1, Cn1, rhs1 = (x[:1] for x in (P, C, R, Cn, rhs))
+        f1 = kkt.qd_factor(P1, C1, R1, Cn1)
+        b1 = ({"ms_b1": _time_ms(lambda: kkt.qd_factor(P1, C1, R1, Cn1), reps)},
+              {"ms_b1": _time_ms(lambda: kkt.qd_solve(f1, C1, Cn1, rhs1, dz), reps)})
+        print(f"qd B=1 {dtype}: factor kernel_ms={b1[0]['ms_b1']:.4f}, solve "
+              f"kernel_ms={b1[1]['ms_b1']:.4f}", flush=True)
+    record("qd_factor", "piccolax_torch/csrc/qd.cu", "piccolax/solver/kkt.py:194",
+           err_f, _time_ms(lambda: kkt.qd_factor(P, C, R, Cn), reps),
+           _time_ms(lambda: kkt.qd_factor_plain(P, C, R, Cn), reps),
+           _bound(f_flops, f_bytes, dtype), None, note, shape=shape, extra=b1[0])
+    record("qd_solve", "piccolax_torch/csrc/qd.cu", "piccolax/solver/kkt.py:252",
+           err_s, _time_ms(lambda: kkt.qd_solve(fk, C, Cn, rhs, dz), reps),
+           _time_ms(lambda: kkt.qd_solve_plain(fp, C, Cn, rhs, dz), reps),
+           _bound(s_flops, s_bytes, dtype), None, note,
+           shape=f"rhs [{B},{N},{dz + m},1] {dtype}", extra=b1[1])
+
+
+def check_tri_lower_inv(record, reps=20):
+    """Phase 3, K8: the lower-triangular inverse (on no solve path) against
+    its plain version at [25600, 16, 16] and [25600, 32, 32], float64 and
+    float32, on Cholesky factors of SPD matrices; relative to
+    max |L^{-1}|, since substitution and doubling round differently. The
+    [25600, 32, 32] float64 row is the kernel's record. Operations from
+    the body: column j takes 2(i - j) + 1 per row i >= j, m(m+1)(2m+1)/6
+    in all; bytes: the sectors of L's lower triangle read, the whole
+    m x m inverse written."""
+    import torch
+    from piccolax_torch.solver import kkt
+
+    rng = np.random.default_rng(31)
+    tol = {"float64": 1e-12, "float32": 1e-5}
+    main, sub = None, {}
+    for m in (32, 16):
+        X = rng.standard_normal((25600, m, m))
+        L0 = np.linalg.cholesky(X @ np.swapaxes(X, -1, -2) / m + np.eye(m))
+        for real in ("float64", "float32"):
+            L = torch.as_tensor(L0, dtype=getattr(torch, real), device="cuda")
+            es = 8 if real == "float64" else 4
+            err, rel = _rel_err(kkt.tri_lower_inv(L), kkt.tri_lower_inv_plain(L))
+            _check(rel < tol[real], f"tri_lower_inv [25600,{m},{m}] {real}: "
+                   f"rel err {rel:.3e}")
+            eye = torch.eye(m, dtype=L.dtype, device="cuda").expand_as(L)
+            ms = _time_ms(lambda: kkt.tri_lower_inv(L), reps)
+            plain_ms = _time_ms(lambda: kkt.tri_lower_inv_plain(L), reps)
+            lib_ms = _time_ms(lambda: torch.linalg.solve_triangular(
+                L, eye, upper=False), reps)
+            b_ms, b_by = _bound(25600 * m * (m + 1) * (2 * m + 1) // 6,
+                                25600 * (_lower_tri_bytes(m, es) + m * m * es), real)
+            key = f"[25600,{m},{m}] {real}"
+            if main is None:
+                main = (key, err, ms, plain_ms, (b_ms, b_by), lib_ms)
+            else:
+                print(f"tri_lower_inv {key}: max_err={err:.3e} ({tol[real]:.0e} "
+                      f"relative), kernel_ms={ms:.4f}, plain_ms={plain_ms:.4f}, "
+                      f"library_ms={lib_ms:.4f} (solve_triangular), "
+                      f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                sub[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    key, err, ms, plain_ms, bnd, lib_ms = main
+    record("tri_lower_inv", "piccolax_torch/csrc/tri_inv.cu",
+           "piccolax/solver/kkt.py:58", err, ms, plain_ms, bnd, lib_ms,
+           "1e-12 (f64) / 1e-5 (f32) relative to max |L^-1|", shape=key,
+           extra={"variants": sub})
+
+
 def _eigh_clamp(W, floor_rel):
     import torch
     ew, V = torch.linalg.eigh(W)
@@ -324,17 +564,27 @@ def _library_chol_inv(A):
     return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
-def _read_launches(path, required):
+def _read_launches(path, required, forbidden=()):
+    """The launch counts of a path's run: every kernel of `required` was
+    launched, none of `forbidden` (the path must not fall back)."""
     from piccolax_torch import _kernels
     launches = dict(_kernels.LAUNCHES)
     print(f"{path} launches: {json.dumps(launches)}", flush=True)
     for k in required:
         _check(launches[k] > 0, f"kernel {k} was not launched on the {path} path")
+    for k in forbidden:
+        _check(launches[k] == 0, f"kernel {k} was launched on the {path} path")
     return launches
 
 
-def config1(B, N, T):
-    """Phase 4: config 1 through the port's entry points, on the card."""
+# the KKT kernels of each backend (K1 factors the knot blocks of "cr")
+_KKT_KERNELS = {"cr": ["chol_inv_factor", "condensed_factor", "condensed_solve"],
+                "qd": ["qd_factor", "qd_solve"]}
+
+
+def config1(B, N, T, kkt_backend="cr"):
+    """Phase 4 (and 9 with kkt_backend "qd"): config 1 through the port's
+    entry points, on the card."""
     import torch
     import piccolax_torch as pt
     from piccolax_torch import _kernels
@@ -353,7 +603,7 @@ def config1(B, N, T):
         (B, N, u_sl.stop - u_sl.start)).astype(np.float32)
     Zb = torch.as_tensor(Zb, device="cuda")
     opts = pt.IPMOptions(max_iter=60, tol=5e-3, constr_viol_tol=5e-3,
-                         ls_iters=6, clamp_iters=15)
+                         ls_iters=6, clamp_iters=15, kkt_backend=kkt_backend)
     pt.solve_nlp(nlp, params, Zb, device="cuda",        # warm-up, 2 iterations
                  options=pt.IPMOptions(**{**opts.__dict__, "max_iter": 2}))
     _kernels.reset_launch_counts()
@@ -363,10 +613,13 @@ def config1(B, N, T):
     _sync()
     seconds = time.perf_counter() - t0
     iters = int(st.it.max().item())
-    launches = _read_launches("config-1", ["chol_inv_factor", "psd_clamp",
-                                           "condensed_factor", "condensed_solve",
-                                           "expm_taylor_fixed"])
-    print(f"config 1: B={B} N={N} f32, {iters} iterations (max), "
+    label = "config-1" if kkt_backend == "cr" else f"config-1-{kkt_backend}"
+    launches = _read_launches(label, ["psd_clamp", "expm_taylor_fixed",
+                                      *_KKT_KERNELS[kkt_backend]],
+                              _KKT_KERNELS["qd" if kkt_backend == "cr" else "cr"])
+    its = st.it.cpu().numpy()
+    print(f"{label}: B={B} N={N} f32, kkt_backend {kkt_backend}, {iters} "
+          f"iterations (max; mean {its.mean():.2f}, min {its.min()}), "
           f"{seconds:.3f} s, {B / seconds:.2f} solves/s; per IPM iteration: "
           + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
           flush=True)
@@ -395,8 +648,9 @@ def config1(B, N, T):
     return launches, (nlp, params, Zb, opts)
 
 
-def _quickstart_problem(device="cuda"):
-    """docs/quickstart.py steps 1-4 (system, pulse, trajectory, problem)."""
+def _quickstart_problem(device="cuda", pade_order="taylor"):
+    """docs/quickstart.py steps 1-4 (system, pulse, trajectory, problem),
+    with the collocation propagator of `pade_order`."""
     import piccolax_torch as pt
     sysq = pt.QuantumSystem(0.5 * pt.PAULIS["Z"], [pt.PAULIS["X"], pt.PAULIS["Y"]],
                             1.0)
@@ -405,25 +659,46 @@ def _quickstart_problem(device="cuda"):
     pulse = pt.ZeroOrderPulse(0.1 * rng.standard_normal((QS_N, 2)), times)
     qtraj = pt.UnitaryTrajectory(sysq, pulse, pt.GATES["X"], device=device)
     qcp = pt.SmoothPulseProblem(qtraj, QS_N, Q=100.0, R=1e-2, ddu_bound=1.0,
-                                dt_bounds=(0.05, 0.2))
+                                dt_bounds=(0.05, 0.2), pade_order=pade_order)
     return sysq, qtraj, qcp
 
 
-ALL = ["chol_inv_factor", "psd_clamp", "condensed_factor", "condensed_solve",
-       "expm_taylor_fixed", "expm_pade13"]
+# The default quickstart path ("taylor", "cr") and the Pade/qd one
+# (pade_order=7, kkt_backend="qd"): the kernels each must launch and those
+# it must not (no fallback to the other path's kernels).
+QS_PATHS = {
+    ("taylor", "cr"): (["chol_inv_factor", "psd_clamp", "condensed_factor",
+                        "condensed_solve", "expm_taylor_fixed", "expm_pade13"],
+                       ["expm_pade_fixed", "qd_factor", "qd_solve"]),
+    (7, "qd"): (["psd_clamp", "expm_pade_fixed", "qd_factor", "qd_solve",
+                 "expm_pade13"],
+                ["chol_inv_factor", "condensed_factor", "condensed_solve",
+                 "expm_taylor_fixed"]),
+}
 
 
-def quickstart():
-    """Phase 5: the quickstart flow, steps 1-5, in float64 on the card."""
+def _qs_options(kkt_backend):
+    import piccolax_torch as pt
+    return pt.IPMOptions(max_iter=150, tol=1e-7, constr_viol_tol=1e-7,
+                         kkt_backend=kkt_backend)
+
+
+def quickstart(pade_order="taylor", kkt_backend="cr"):
+    """Phase 5 (and 7 with pade_order=7, kkt_backend="qd"): the quickstart
+    flow, steps 1-5, in float64 on the card."""
     import piccolax_torch as pt
     from piccolax_torch import _kernels
 
+    label = "quickstart" if pade_order == "taylor" else \
+        f"quickstart-pade{pade_order}-{kkt_backend}"
+    required, forbidden = QS_PATHS[(pade_order, kkt_backend)]
     _kernels.reset_launch_counts()
     _sync()
     t0 = time.perf_counter()
-    sysq, qtraj, qcp = _quickstart_problem()
+    sysq, qtraj, qcp = _quickstart_problem(pade_order=pade_order)
     F0 = float(qtraj.fidelity())
-    qcp.solve(max_iter=150, tol=1e-7, verbose=True, device="cuda")
+    qcp.solve(max_iter=150, tol=1e-7, verbose=True, device="cuda",
+              options=_qs_options(kkt_backend))
     F = float(qcp.fidelity())
     tt = qcp.traj.get_times()
     F_roll = float(pt.unitary_rollout_fidelity(
@@ -431,38 +706,43 @@ def quickstart():
         device="cuda"))
     _sync()
     wall = time.perf_counter() - t0
-    launches = _read_launches("quickstart", ALL)
+    launches = _read_launches(label, required, forbidden)
     iters = int(qcp.result.it)
     dF = abs(F - F_roll)
-    print(f"quickstart: N={QS_N} T={QS_T} f64, initial F={F0:.6f}, {iters} "
+    print(f"{label}: N={QS_N} T={QS_T} f64, pade_order {pade_order}, "
+          f"kkt_backend {kkt_backend}, initial F={F0:.6f}, {iters} "
           f"iterations, converged={qcp.converged}, stalled={qcp.stalled}, "
           f"wall {wall:.3f} s (construction, solve, sync, rollout check), "
           f"F={F:.9f}, F_roll={F_roll:.9f}, |dF|={dF:.3e}; per IPM iteration: "
           + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
           flush=True)
-    _check(F > 0.999, f"quickstart fidelity {F} <= 0.999")
-    _check(dF < 1e-5, f"quickstart |F - F_roll| = {dF} >= 1e-5")
+    _check(F > 0.999, f"{label} fidelity {F} <= 0.999")
+    _check(dF < 1e-5, f"{label} |F - F_roll| = {dF} >= 1e-5")
     return launches
 
 
-def quickstart_batched(gate):
-    """Phase 6: the quickstart problem at B = 256 (pulses perturbed by
-    0.02 N(0, 1), as bench.py does) in one batched float64 solve with the
-    Newton candidate, then one batched rollout (10 substeps) of all
-    extracted pulses through one K5 launch."""
+def quickstart_batched(gate, pade_order="taylor", kkt_backend="cr"):
+    """Phase 6 (and 8 with pade_order=7, kkt_backend="qd"): the quickstart
+    problem at B = 256 (pulses perturbed by 0.02 N(0, 1), as bench.py
+    does) in one batched float64 solve with the Newton candidate, then one
+    batched rollout (10 substeps) of all extracted pulses through one K5
+    launch."""
     import torch
     import piccolax_torch as pt
     from piccolax_torch import _kernels
     from piccolax_torch.quantum.dynamics import unitary_fidelity_iso
 
-    sysq, _, qcp = _quickstart_problem()
+    label = "batched-quickstart" if pade_order == "taylor" else \
+        f"batched-quickstart-pade{pade_order}-{kkt_backend}"
+    required, forbidden = QS_PATHS[(pade_order, kkt_backend)]
+    sysq, _, qcp = _quickstart_problem(pade_order=pade_order)
     nlp, params, Z0, _, lay = qcp.build(device="cuda")
     u, dsl, Usl = lay.slices["u"], lay.slices["dt"], lay.slices["U"]
     rng = np.random.default_rng(0)
     Zb = np.broadcast_to(Z0.cpu().numpy()[None], (QS_B, *Z0.shape)).copy()
     Zb[:, :, u] += 0.02 * rng.standard_normal((QS_B, QS_N, u.stop - u.start))
     Zb = torch.as_tensor(Zb, device="cuda")
-    opts = pt.IPMOptions(max_iter=150, tol=1e-7, constr_viol_tol=1e-7)
+    opts = _qs_options(kkt_backend)
     pt.solve_nlp(nlp, params, Zb, device="cuda",        # warm-up, 2 iterations
                  options=pt.IPMOptions(**{**opts.__dict__, "max_iter": 2}))
     _kernels.reset_launch_counts()
@@ -478,7 +758,7 @@ def quickstart_batched(gate):
                                          interpolation="constant")
     _sync()
     t_total = time.perf_counter() - t0
-    launches = _read_launches("batched-quickstart", ALL)
+    launches = _read_launches(label, required, forbidden)
     goal = params["goal"]["U"]
     F_rep = unitary_fidelity_iso(Z[:, -1, Usl], goal)
     F_roll, F_rep = F_roll.cpu().numpy(), F_rep.cpu().numpy()
@@ -487,7 +767,8 @@ def quickstart_batched(gate):
     n_stall = int(st.stalled.sum().item())
     frac = float(np.mean(F_roll > 0.999))
     dF = np.abs(F_rep - F_roll)
-    print(f"batched quickstart: B={QS_B} N={QS_N} f64, {iters} iterations (max), "
+    print(f"{label}: B={QS_B} N={QS_N} f64, pade_order {pade_order}, "
+          f"kkt_backend {kkt_backend}, {iters} iterations (max), "
           f"solve {t_solve:.3f} s, {QS_B / t_solve:.2f} solves/s, with the "
           f"rollout {t_total:.3f} s; converged={n_conv}/{QS_B}, "
           f"stalled={n_stall}/{QS_B}, F_roll mean={F_roll.mean():.6f} "
@@ -496,8 +777,8 @@ def quickstart_batched(gate):
           + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
           flush=True)
     _check(bool(torch.isfinite(Z).all()) and np.all(np.isfinite(F_roll)),
-           "batched quickstart: non-finite results")
-    _check(frac >= gate, f"batched quickstart: frac_F_roll>0.999 {frac} < {gate}")
+           f"{label}: non-finite results")
+    _check(frac >= gate, f"{label}: frac_F_roll>0.999 {frac} < {gate}")
     return launches, (nlp, params, Zb, opts)
 
 
@@ -535,7 +816,7 @@ def profile(name, fn):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile config 1 and both quickstart solves")
+                    help="also profile config 1 and the four quickstart solves")
     args = ap.parse_args()
 
     import torch
@@ -563,21 +844,29 @@ def main():
               f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, "shape": shape}
+               "library_ms": library_ms, "shape": shape, **(extra or {})}
         if name in rows:                       # the float64 quickstart shapes
             rows[name]["float64_quickstart"] = row
             return
         rows[name] = {"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": 0, **row, **(extra or {})}
+                      "replaces": replaces, "launches": 0, **row}
 
     check_kernels(256, 50, 14, 12, "float32", record)
     check_kernels(QS_B, QS_N, 15, 13, "float64", record, reps=5)
     check_expm_pade13(record)
+    check_expm_pade_fixed(record, reps=5)
+    check_qd(256, 50, 14, 12, "float32", record)
+    check_qd(QS_B, QS_N, 15, 13, "float64", record, reps=5)
+    check_tri_lower_inv(record, reps=5)
 
     paths = {}
     paths["config1"], run1 = config1(256, 50, 10.0)
     paths["quickstart"] = quickstart()
     paths["quickstart_b256"], run_b = quickstart_batched(gate=0.9)
+    paths["quickstart_pade7_qd"] = quickstart(pade_order=7, kkt_backend="qd")
+    paths["quickstart_pade7_qd_b256"], run_pq = quickstart_batched(
+        gate=0.9, pade_order=7, kkt_backend="qd")
+    paths["config1_qd"], _ = config1(256, 50, 10.0, kkt_backend="qd")
     if args.profile:
         profile("config 1 solve (B=256, f32)",
                 lambda: pt.solve_nlp(*run1[:3], options=run1[3], device="cuda"))
@@ -587,6 +876,12 @@ def main():
                                   device="cuda"))
         profile("batched quickstart solve (B=256, f64)",
                 lambda: pt.solve_nlp(*run_b[:3], options=run_b[3], device="cuda"))
+        _, _, qcp7 = _quickstart_problem(pade_order=7)
+        profile("Pade/qd quickstart solve (B=1, f64)",
+                lambda: qcp7.solve(verbose=False, device="cuda",
+                                   options=_qs_options("qd")))
+        profile("batched Pade/qd quickstart solve (B=256, f64)",
+                lambda: pt.solve_nlp(*run_pq[:3], options=run_pq[3], device="cuda"))
     for name, r in rows.items():
         r["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

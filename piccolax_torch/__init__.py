@@ -3,10 +3,11 @@
 The same batched interior-point collocation solver as `piccolax`, written
 with PyTorch tensors and an explicit batch dimension. Every routine that
 `piccolax` shaped for the TPU (the Cholesky-inverse factor, the
-Newton-Schulz PSD clamp, the cyclic-reduction KKT, the Taylor expm of the
-collocation residuals, the Pade-13 expm of the rollouts) is a hand-written
-CUDA kernel for sm_90a here (`csrc/`), with a plain PyTorch version beside
-it that serves tensors on the CPU.
+Newton-Schulz PSD clamp, the cyclic-reduction and the sequential
+quasidefinite KKT, the lower-triangular inverse, the Taylor and the
+fixed-order Pade expm of the collocation residuals, the Pade-13 expm of
+the rollouts) is a hand-written CUDA kernel for sm_90a here (`csrc/`),
+with a plain PyTorch version beside it that serves tensors on the CPU.
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 

@@ -26,12 +26,15 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "load", "build", "check",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "expm_taylor", "expm_pade13")
+_SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "expm_taylor", "expm_pade13",
+            "expm_pade_fixed", "qd", "tri_inv")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"chol_inv_factor": 0, "psd_clamp": 0, "condensed_factor": 0,
-            "condensed_solve": 0, "expm_taylor_fixed": 0, "expm_pade13": 0}
+            "condensed_solve": 0, "expm_taylor_fixed": 0, "expm_pade13": 0,
+            "expm_pade_fixed": 0, "qd_factor": 0, "qd_solve": 0,
+            "tri_lower_inv": 0}
 
 _LIBS: dict = {}
 
@@ -51,6 +54,12 @@ _SIGNATURES = {
     },
     "expm_taylor": {"px_expm_taylor": ([_C, _P, _P, _L, _C, _C, _C, _P], _C)},
     "expm_pade13": {"px_expm_pade13": ([_C, _P, _P, _P, _L, _C, _C, _P], _C)},
+    "expm_pade_fixed": {"px_expm_pade_fixed": ([_C, _P, _P, _L, _C, _C, _C, _P], _C)},
+    "qd": {
+        "px_qd_factor": ([_C, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _P], _C),
+        "px_qd_solve": ([_C, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P], _C),
+    },
+    "tri_inv": {"px_tri_lower_inv": ([_C, _P, _P, _L, _C, _P], _C)},
 }
 
 

@@ -6,7 +6,8 @@ Rows are affine in z_{k+1}, as the condensed KKT requires:
 - `BilinearUnitaryIntegrator`: U_{k+1} - expm(dt_k G(u_k)) U_k on operator
   iso-vecs. The propagator and its exact first and second derivatives in
   u (and in dt_k when the timestep is a decision variable) come from ONE
-  call of the Taylor expm kernel (K4) on block-triangular augmentations
+  call of the fixed expm kernel (K4 for order "taylor", K6 for a Pade
+  order) on block-triangular augmentations
   (`ops.expm.expm_fixed_derivatives`): the derivatives of the same
   approximant that piccolax differentiates with jacfwd/hessian.
 - `DerivativeIntegrator`: u_{k+1} - u_k - dt_k du_k (bilinear, no kernel).
@@ -23,7 +24,8 @@ import math
 import numpy as np
 import torch
 
-from ..ops.expm import TAYLOR_THETA, expm_fixed, expm_fixed_derivatives
+from ..ops.expm import (TAYLOR_THETA, expm_fixed, expm_fixed_derivatives,
+                        pade_radius)
 
 __all__ = ["BilinearUnitaryIntegrator", "DerivativeIntegrator",
            "TimeStepsEqualIntegrator", "choose_squarings"]
@@ -31,9 +33,9 @@ __all__ = ["BilinearUnitaryIntegrator", "DerivativeIntegrator",
 
 def choose_squarings(max_norm: float, order="taylor") -> int:
     """Static squaring count so ||A||/2^s is inside the approximant's
-    accuracy radius (Taylor: ops/expm.py TAYLOR_THETA)."""
-    radius = TAYLOR_THETA if order == "taylor" \
-        else {3: 0.02, 5: 0.25, 7: 0.95, 9: 2.1}[order]
+    accuracy radius (Taylor: ops/expm.py TAYLOR_THETA; Pade: PADE_ORDERS).
+    An order that is neither "taylor" nor a key of PADE_ORDERS raises."""
+    radius = TAYLOR_THETA if order == "taylor" else pade_radius(order)
     if max_norm <= radius:
         return 0
     return max(0, math.ceil(math.log2(max_norm / radius)))

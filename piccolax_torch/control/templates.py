@@ -26,7 +26,10 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
                        extra_objectives=(), extra_constraints=()):
     """Canonical ZOH-pulse collocation problem with smoothness via chained
     derivative variables du, ddu. With dt_bounds the timesteps are bounded
-    decision variables, held equal unless timesteps_all_equal=False."""
+    decision variables, held equal unless timesteps_all_equal=False.
+    pade_order is "taylor" (the Taylor approximant, K4) or a diagonal Pade
+    order in {3, 5, 7, 9} (K6) for the collocation propagators; any other
+    value raises ValueError."""
     unported = {
         "free_phase": bool(free_phase),
         "leakage": (leakage_indices is not None or bool(leakage_cost)
@@ -42,8 +45,6 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
             raise NotImplementedError(f"SmoothPulseProblem: {what}")
     if not isinstance(qtraj, UnitaryTrajectory):
         raise NotImplementedError("only UnitaryTrajectory is ported")
-    if pade_order != "taylor":
-        raise NotImplementedError(f"pade_order={pade_order!r} (only 'taylor')")
     zero_d = bool(zero_initial_and_final_derivative)
     if state_bound == "box":
         state_bound = 1.0

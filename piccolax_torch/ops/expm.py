@@ -1,14 +1,19 @@
-"""Matrix exponentials (kernels K4 and K5).
+"""Matrix exponentials (kernels K4, K5 and K6).
 
 - `expm_taylor_fixed` (K4), the collocation hot path: the Paterson-
   Stockmeyer Taylor approximant with a static squaring count of
   `piccolax.ops.expm`, order 8 in float32 and 12 otherwise.
+- `expm_pade_fixed` (K6), the collocation path of a problem built with an
+  integer `pade_order`: diagonal Pade [m/m] (m in 3, 5, 7, 9) with a
+  static squaring count and the denominator inverted by 6 Newton-Schulz
+  steps.
 - `expm` (K5), the rollout: scaling-and-squaring Pade-13 with a squaring
   count per matrix and the denominator inverted by Newton-Schulz.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
-(`csrc/expm_taylor.cu`, `csrc/expm_pade13.cu`); on a CPU tensor it runs its
-`*_plain` version, the same arithmetic in PyTorch.
+(`csrc/expm_taylor.cu`, `csrc/expm_pade_fixed.cu`, `csrc/expm_pade13.cu`);
+on a CPU tensor it runs its `*_plain` version, the same arithmetic in
+PyTorch.
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ import torch
 from .. import _kernels
 from .._device import resolve_device
 
-__all__ = ["TAYLOR_THETA", "expm_taylor_fixed", "expm_taylor_fixed_plain",
-           "expm_fixed", "expm_fixed_derivatives", "expm", "expm_plain",
+__all__ = ["TAYLOR_THETA", "PADE_ORDERS", "pade_radius", "expm_taylor_fixed",
+           "expm_taylor_fixed_plain", "expm_pade_fixed", "expm_pade_fixed_plain",
+           "expm_action", "expm_fixed", "expm_fixed_derivatives", "expm", "expm_plain",
            "pade13_squarings", "anti_hermitian_by_squarings"]
 
 _FACT = [1.0]
@@ -97,18 +103,119 @@ def expm_taylor_fixed(A, order: int | None = None, squarings: int = 2):
     return out
 
 
+def _ns_solve(Mden, Mnum, b0, iters):
+    """Solve Mden @ F = Mnum by Newton-Schulz: X <- X(2I - Mden X) from
+    X0 = I/b0 (Mden = b0 (I + E) with ||E|| < 1)."""
+    n = Mden.shape[-1]
+    ident = torch.eye(n, dtype=Mden.dtype, device=Mden.device)
+    X = (ident / b0).expand(Mden.shape)
+    for _ in range(iters):
+        X = X @ (2.0 * ident - Mden @ X)
+    return X @ Mnum
+
+
+# --------------------------------------------------------------------------- #
+# K6: fixed-order diagonal Pade with a static squaring count
+# --------------------------------------------------------------------------- #
+
+# Pade [m/m] by order: the accuracy radius of ||A|| / 2^s (piccolax's
+# choose_squarings) and the numerator coefficients b_0..b_m; the
+# denominator has the same ones with alternating signs (piccolax/ops/
+# expm.py: _PADE_B). The one table of the orders the port takes.
+PADE_ORDERS = {
+    3: (0.02, (120.0, 60.0, 12.0, 1.0)),
+    5: (0.25, (30240.0, 15120.0, 3360.0, 420.0, 30.0, 1.0)),
+    7: (0.95, (17297280.0, 8648640.0, 1995840.0, 277200.0, 25200.0, 1512.0,
+               56.0, 1.0)),
+    9: (2.1, (17643225600.0, 8821612800.0, 2075673600.0, 302702400.0,
+              30270240.0, 2162160.0, 110880.0, 3960.0, 90.0, 1.0)),
+}
+_PADE_NS_ITERS = 6
+
+
+def pade_radius(order) -> float:
+    """The accuracy radius of a Pade order; any other order raises."""
+    if order not in PADE_ORDERS:
+        raise ValueError(f"unsupported pade_order {order!r} "
+                         f"(one of {sorted(PADE_ORDERS)})")
+    return PADE_ORDERS[order][0]
+
+
+def expm_pade_fixed_plain(A, order: int = 7, squarings: int = 2):
+    """Plain PyTorch version of K6, batched over leading axes."""
+    pade_radius(order)
+    b = PADE_ORDERS[order][1]
+    A = A * (2.0 ** (-squarings))
+    n = A.shape[-1]
+    ident = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    n_even = (order + 1) // 2
+    evens = [ident]
+    A2 = A @ A
+    for j in range(1, n_even):
+        evens.append(A2 if j == 1 else evens[-1] @ A2)
+    # summed in the order of piccolax's Python sum(), from 0
+    U_inner = sum(b[2 * j + 1] * evens[j] for j in range(n_even))
+    V = sum(b[2 * j] * evens[j] for j in range(n_even))
+    U = A @ U_inner
+    F = _ns_solve(V - U, V + U, b[0], _PADE_NS_ITERS)
+    for _ in range(squarings):
+        F = F @ F
+    return F
+
+
+def expm_pade_fixed(A, order: int = 7, squarings: int = 2):
+    """K6: Pade [order/order] expm of every [n, n] matrix of a real
+    A [..., n, n] (n <= 32) with a static squaring count.
+
+    Replaces piccolax/ops/expm.py:105 expm_pade_fixed (with _ns_solve).
+    Bound on the H100: bytes at 4 x 4, float64 arithmetic at 12 x 12
+    (3 to 5 products for the powers and U, 12 for the Newton-Schulz
+    inverse, 1 for the numerator, then the squarings). The kernel keeps
+    every intermediate of a matrix in shared memory, one thread per
+    entry, several matrices per thread block, so device memory sees each
+    input and each result once; see csrc/expm_pade_fixed.cu.
+    """
+    pade_radius(order)
+    if A.device.type == "cpu":
+        return expm_pade_fixed_plain(A, order, squarings)
+    if A.device.type != "cuda":
+        raise RuntimeError(f"expm_pade_fixed: unsupported device {A.device}")
+    n = A.shape[-1]
+    _kernels.require(A, "expm_pade_fixed")
+    if A.dim() < 2 or A.shape[-2] != n or n > _MAX_N:
+        raise ValueError(f"expm_pade_fixed: square blocks up to {_MAX_N} "
+                         f"expected, got {tuple(A.shape)}")
+    out = torch.empty_like(A)
+    lib = _kernels.load("expm_pade_fixed")
+    rc = lib.px_expm_pade_fixed(_kernels.is_f64(A), A.data_ptr(), out.data_ptr(),
+                                A.numel() // (n * n), n, order, squarings,
+                                _kernels.stream_handle(A))
+    _kernels.LAUNCHES["expm_pade_fixed"] += 1
+    _kernels.check(rc, "expm_pade_fixed")
+    return out
+
+
+def expm_action(A, x, order: int = 7, squarings: int = 2):
+    """expm(A) @ x through K6 (piccolax/ops/expm.py:194 expm_action)."""
+    return expm_pade_fixed(A, order, squarings) @ x
+
+
 def expm_fixed(A, order, squarings: int):
-    """Static-shape expm dispatcher of the collocation hot path."""
+    """Static-shape expm dispatcher of the collocation hot path: "taylor"
+    (K4) or a Pade order in {3, 5, 7, 9} (K6)."""
     if order == "taylor":
         return expm_taylor_fixed(A, None, squarings)
-    raise NotImplementedError(f"Pade order {order!r} (only 'taylor' is ported)")
+    return expm_pade_fixed(A, order, squarings)
 
 
 def expm_fixed_derivatives(A, E, order, squarings: int):
     """r(A) and its exact first and second directional derivatives along
     the directions E [..., d, w, w], for A [..., w, w], in ONE expm call.
 
-    r(A) = p(A / 2^s)^(2^s) is a polynomial in A, so for
+    Every product and sum of either approximant is a polynomial in A:
+    Taylor's r(A) = p(A / 2^s)^(2^s), and Pade's r(A) = (X_6 (V + U))^(2^s)
+    whose Newton-Schulz iterate X_{i+1} = X_i (2I - (V - U) X_i) from
+    X_0 = I / b_0 is itself a polynomial in A. So for
     M_ij = [[A, E_i, 0], [0, A, E_j], [0, 0, A]] the blocks of r(M_ij) are
     r(A) on the diagonal, Dr(A)[E_i] and Dr(A)[E_j] above it, and the
     ordered half of D^2 r(A)[E_i, E_j] in the corner; the second
@@ -152,17 +259,6 @@ _INV_THETA13 = 1.0 / _THETA13
 _INV_LN2 = 1.0 / math.log(2.0)
 _NS_ITERS = 8
 _MAX_N_PADE = 16
-
-
-def _ns_solve(Mden, Mnum, b0, iters):
-    """Solve Mden @ F = Mnum by Newton-Schulz: X <- X(2I - Mden X) from
-    X0 = I/b0 (Mden = b0 (I + E) with ||E|| < 1)."""
-    n = Mden.shape[-1]
-    ident = torch.eye(n, dtype=Mden.dtype, device=Mden.device)
-    X = (ident / b0).expand(Mden.shape)
-    for _ in range(iters):
-        X = X @ (2.0 * ident - Mden @ X)
-    return X @ Mnum
 
 
 def _pade13(A):

@@ -13,9 +13,11 @@ parallel Armijo search on an augmented-Lagrangian merit), with the
 - the loop ends when every problem is done or max_iter is reached, with
   one host sync per iteration.
 
-The port runs kkt_backend="cr" with hess_mode "clamp" or "abs", with the
-exact-Newton candidate (newton_dir; on by default in float64) or without
-it; every other option raises NotImplementedError.
+The port runs kkt_backend "cr" (condensed KKT by cyclic reduction) or
+"qd" (the sequential quasidefinite recursion along the knots) with
+hess_mode "clamp" or "abs", with the exact-Newton candidate (newton_dir;
+on by default in float64) or without it; every other option raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import math
 import torch
 
 from .._device import resolve_device
-from .kkt import condensed_factor, condensed_solve, psd_clamp
+from .kkt import (condensed_factor, condensed_solve, psd_clamp, qd_factor,
+                  qd_solve)
 from .nlp import (CollocationNLP, nlp_constraint_residuals, nlp_total_cost,
                   params_to)
 
@@ -149,9 +152,16 @@ def _derivatives(nlp: CollocationNLP, Z, params, lam):
     return g, Cself, Cnext, 0.5 * (H + H.mT)
 
 
+# (factor, solve) of each ported KKT backend: factor(W, Cself, reg, Cn)
+# and solve(factors, Cself, Cn, rhs, dz)
+_KKT_BACKENDS = {"cr": (condensed_factor, condensed_solve),
+                 "qd": (qd_factor, qd_solve)}
+
+
 def _check_options(o: IPMOptions):
-    if o.kkt_backend != "cr":
-        raise NotImplementedError(f"kkt_backend={o.kkt_backend!r} (only 'cr')")
+    if o.kkt_backend not in _KKT_BACKENDS:
+        raise NotImplementedError(f"kkt_backend={o.kkt_backend!r} (only "
+                                  f"{' and '.join(map(repr, _KKT_BACKENDS))})")
     if o.hess_mode not in ("clamp", "abs"):
         raise NotImplementedError(f"hess_mode={o.hess_mode!r}")
 
@@ -170,6 +180,7 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
     kw = dict(dtype=dtype, device=dev)
     is_f32 = dtype == torch.float32
     _check_options(o)
+    factor_fn, solve_fn = _KKT_BACKENDS[o.kkt_backend]
     use_newton = o.newton_dir if o.newton_dir is not None else not is_f32
     delta_c = max(o.delta_c, o.delta_c_f32) if is_f32 else o.delta_c
     hess_floor = max(o.hess_floor, o.hess_floor_f32) if is_f32 else o.hess_floor
@@ -346,8 +357,8 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
             """(rz [B,N,dz], rc [B,N,m]) -> (dZ, dlam); one step of
             iterative refinement, as the reference takes."""
             r = torch.cat([rz, rc], dim=2)[..., None]
-            w = condensed_solve(aux["f"], Cself, Cn, r, dz)
-            w = w + condensed_solve(aux["f"], Cself, Cn, r - K_matvec(aux["W"], w), dz)
+            w = solve_fn(aux["f"], Cself, Cn, r, dz)
+            w = w + solve_fn(aux["f"], Cself, Cn, r - K_matvec(aux["W"], w), dz)
             w = w[..., 0]
             return w[:, :, :dz], w[:, :, dz:]
 
@@ -370,17 +381,17 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
                        mode=clamp_mode)
         WzzC = HB + torch.diag_embed(SigL + SigU)
         auxC = {"W": WzzC,
-                "f": condensed_factor(WzzC, Cself, reg_b, Cn)}
+                "f": factor_fn(WzzC, Cself, reg_b, Cn)}
         dZC, dlamC = kkt_solve(auxC, a, -ch)
         okC = finite(dZC, dlamC)
         dZC, dlamC = keep(okC, dZC), keep(okC, dlamC)
 
         # -- exact-Newton direction N on the unclamped Hessian ---------------- #
-        # kept where the factorization goes through (no NaN from K1) and the
-        # curvature test passes; the SOC rides its factorization
+        # kept where the factorization goes through (no NaN from K1 or K7)
+        # and the curvature test passes; the SOC rides its factorization
         if use_newton:
             Wzz = (Hext + torch.diag_embed(SigL + SigU)).contiguous()
-            auxN = {"W": Wzz, "f": condensed_factor(Wzz, Cself, reg_b, Cn)}
+            auxN = {"W": Wzz, "f": factor_fn(Wzz, Cself, reg_b, Cn)}
             dZN, dlamN = kkt_solve(auxN, a, -ch)
             okN = curvature_ok(Wzz, dZN, dlamN)
             dZN, dlamN = keep(okN, dZN), keep(okN, dlamN)

@@ -1,4 +1,4 @@
-"""Block-tridiagonal KKT solves of the IPM (kernels K1, K2, K3).
+"""Block-tridiagonal KKT solves of the IPM (kernels K1, K2, K3, K7, K8).
 
 The per-iteration KKT with per-knot blocks [[P_k, C_k^T], [C_k, -diag(R_k)]]
 and coupling Cnext (constraint rows of knot k touch z_{k+1}) condenses,
@@ -8,7 +8,10 @@ when every P_k is PD, onto the SPD block-tridiagonal dual system
     S[k,k+1] = Cn_k Pinv_{k+1} C_{k+1}^T
 
 solved by block cyclic reduction over power-of-two-padded levels, as in
-`piccolax.solver.kkt`. Every function takes a leading batch of problems.
+`piccolax.solver.kkt` (kkt_backend "cr"). The "qd" backend factors the
+same quasidefinite system by the sequential block recursion along the
+knots instead (`qd_factor` / `qd_solve`, K7). Every function takes a
+leading batch of problems.
 
 Each kernel wrapper runs its `*_plain` PyTorch version for tensors on the
 CPU and launches its CUDA kernel (`csrc/`) for tensors on the card; NaNs
@@ -18,7 +21,9 @@ Factor layout (shared by the plain versions and the kernels):
 `condensed_factor` returns (Xi [B, N, dz, dz], cr [B, 3, Np, m, m]); cr
 holds, per CR level l (n = Np >> l rows), the Cholesky-inverse factors Xi,
 and the couplings Ul, Ur of its n/2 odd rows at slots off_l .. off_l+n/2-1
-with off_l = Np - n; slot Np-1 of plane 0 is the root factor.
+with off_l = Np - n; slot Np-1 of plane 0 is the root factor. `qd_factor` returns
+(Pinv [B, N, dz, dz], Sinv [B, N, m, m]), the inverses of the Schur-updated
+primal blocks and of the dual Schur complements, knot by knot.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ __all__ = [
     "condense_cr_factor", "condense_cr_factor_plain",
     "condensed_factor", "condensed_factor_plain",
     "condensed_solve", "condensed_solve_plain",
+    "qd_factor", "qd_factor_plain", "qd_solve", "qd_solve_plain",
+    "tri_lower_inv", "tri_lower_inv_plain",
 ]
 
 _MAX_M = 32
@@ -58,30 +65,17 @@ def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:
 def chol_inv_factor_plain(A):
     """Plain version of K1: Xi with A^{-1} = Xi^T Xi for SPD A [..., m, m].
 
-    Jacobi-equilibrated, unblocked Cholesky, forward-substitution inverse;
-    a block with a non-positive pivot comes back all NaN. The same lower-
-    triangular Xi as piccolax's recursive blocked inverse (it is unique).
+    Jacobi-equilibrated Cholesky and triangular inverse; a block that is
+    not positive definite comes back all NaN. The same lower-triangular Xi
+    as piccolax's recursive blocked inverse (it is unique).
     """
     m = A.shape[-1]
     tiny = 1e-300 if A.dtype == torch.float64 else 0.0   # 1e-300 -> 0 in f32
     d = torch.sqrt(torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1), min=tiny))
-    L = A / d[..., :, None] / d[..., None, :]
-    ok = torch.ones(A.shape[:-2], dtype=torch.bool, device=A.device)
-    for j in range(m):
-        v = L[..., j:, j] - (L[..., j:, :j] @ L[..., j, :j, None])[..., 0]
-        piv = v[..., 0]
-        ok = ok & (piv > 0)
-        ljj = torch.sqrt(piv)
-        L[..., j, j] = ljj
-        L[..., j + 1:, j] = v[..., 1:] / ljj[..., None]
-        L[..., j, j + 1:] = 0.0
-    W = torch.zeros_like(L)
-    eye = torch.eye(m, dtype=A.dtype, device=A.device)
-    for i in range(m):
-        s = eye[i] - (L[..., i, None, :i] @ W[..., :i, :])[..., 0, :]
-        W[..., i, :] = s / L[..., i, i, None]
-    Xi = W / d[..., None, :]
-    return torch.where(ok[..., None, None], Xi, torch.full_like(Xi, math.nan))
+    L, info = torch.linalg.cholesky_ex(A / d[..., :, None] / d[..., None, :])
+    eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(L.shape)
+    Xi = torch.linalg.solve_triangular(L, eye, upper=False) / d[..., None, :]
+    return torch.where((info == 0)[..., None, None], Xi, torch.full_like(Xi, math.nan))
 
 
 def chol_inv_factor(A):
@@ -286,12 +280,15 @@ def condensed_solve_plain(factors, C, Cnext, rhs, dz):
     return torch.cat([z, lam], dim=-2)
 
 
-def _check_kkt_shapes(C, Cnext, what):
+def _check_kkt_shapes(C, Cnext, what, min_knots=2, max_dz=math.inf):
+    """(B, N, m, dz) of the blocks a KKT kernel takes, after checking
+    N >= min_knots, m <= 32 and dz <= max_dz."""
     if C.dim() != 4:
         raise ValueError(f"{what}: C [B, N, m, dz] expected, got {tuple(C.shape)}")
     B, N, m, dz = C.shape
-    if N < 2 or m > _MAX_M:
-        raise ValueError(f"{what}: N >= 2 and m <= {_MAX_M} expected")
+    if N < min_knots or m > _MAX_M or dz > max_dz:
+        raise ValueError(f"{what}: N >= {min_knots}, m <= {_MAX_M} and dz <= "
+                         f"{max_dz} expected, got {tuple(C.shape)}")
     _kernels.require(C, f"{what} C")
     _kernels.require(Cnext, f"{what} Cnext", (B, N - 1, m, dz), like=C)
     return B, N, m, dz
@@ -370,4 +367,176 @@ def condensed_solve(factors, C, Cnext, rhs, dz):
                                  _kernels.stream_handle(rhs))
     _kernels.LAUNCHES["condensed_solve"] += 1
     _kernels.check(rc_, "condensed_solve")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K7: sequential quasidefinite recursion (kkt_backend "qd")
+# --------------------------------------------------------------------------- #
+
+
+def qd_factor_plain(P, C, Rdiag, Cnext):
+    """Plain version of K7's factor, a loop over the knots of piccolax's
+    qd_factor with the batch leading: P [..., N, dz, dz], C [..., N, m, dz],
+    Rdiag [..., N, m], Cnext [..., N-1, m, dz] -> (Pinv, Sinv).
+
+    P_eff = P_k + W^T W with W = Zi_{k-1} Cn_{k-1} and S = Y Y^T + diag(R)
+    with Y = C Xi^T are Gram products, as piccolax forms them: C Pinv C^T
+    through the explicit inverse loses PD-ness when P is ill-conditioned.
+    A non-PD P_eff gives NaN from its knot on.
+    """
+    N = C.shape[-3]
+    Pinvs, Sinvs = [], []
+    Zi = None
+    for k in range(N):
+        P_eff = P[..., k, :, :]
+        if k > 0:
+            W = Zi @ Cnext[..., k - 1, :, :]
+            P_eff = P_eff + W.mT @ W
+        Xi = chol_inv_factor_plain(P_eff)
+        Y = C[..., k, :, :] @ Xi.mT
+        S = Y @ Y.mT + torch.diag_embed(Rdiag[..., k, :])
+        Zi = chol_inv_factor_plain(0.5 * (S + S.mT))
+        Pinvs.append(Xi.mT @ Xi)
+        Sinvs.append(Zi.mT @ Zi)
+    return torch.stack(Pinvs, dim=-3), torch.stack(Sinvs, dim=-3)
+
+
+def _qd_block_apply(Pinv, Sinv, C, a, b):
+    """Dt^{-1} applied to (a [..., dz, r], b [..., m, r]) at one knot:
+    t = Pinv a, y = Sinv (C t - b), x = t - Pinv C^T y."""
+    t = Pinv @ a
+    y = Sinv @ (C @ t - b)
+    return t - Pinv @ (C.mT @ y), y
+
+
+def qd_solve_plain(factors, C, Cnext, rhs, dz):
+    """Plain version of K7's solve: the forward and backward sweeps of
+    piccolax's qd_solve. rhs [..., N, dz + m, r] ordered (z, lam)."""
+    Pinv, Sinv = factors
+    N = rhs.shape[-3]
+    ys = [rhs[..., 0, :, :]]
+    for k in range(1, N):
+        y = ys[-1]
+        _, w_lam = _qd_block_apply(Pinv[..., k - 1, :, :], Sinv[..., k - 1, :, :],
+                                   C[..., k - 1, :, :], y[..., :dz, :], y[..., dz:, :])
+        r = rhs[..., k, :, :]
+        ys.append(torch.cat([r[..., :dz, :] - Cnext[..., k - 1, :, :].mT @ w_lam,
+                             r[..., dz:, :]], dim=-2))
+    xs = [None] * N
+    x_next = None
+    for k in range(N - 1, -1, -1):
+        y = ys[k]
+        b = y[..., dz:, :]
+        if x_next is not None:
+            b = b - Cnext[..., k, :, :] @ x_next[..., :dz, :]
+        xz, xl = _qd_block_apply(Pinv[..., k, :, :], Sinv[..., k, :, :],
+                                 C[..., k, :, :], y[..., :dz, :], b)
+        x_next = xs[k] = torch.cat([xz, xl], dim=-2)
+    return torch.stack(xs, dim=-3)
+
+
+def qd_factor(P, C, Rdiag, Cnext):
+    """K7 factor of the quasidefinite block-tridiagonal KKT for a batch of
+    problems: P [B, N, dz, dz], C [B, N, m, dz], Rdiag [B, N, m],
+    Cnext [B, N-1, m, dz] (m, dz <= 32). Returns (Pinv, Sinv).
+
+    Replaces piccolax/solver/kkt.py:194 qd_factor. The recursion is N
+    knots deep and no batch hides that depth; at B = 256 the bound is
+    the bytes it moves. One thread block per problem walks the knots in a
+    loop, the two Cholesky inverses of a knot on one warp (K1's routine)
+    and its Gram products on all four, every intermediate in shared
+    memory; see csrc/qd.cu. NaN from the knot of a non-PD P_eff on, in
+    that problem only.
+    """
+    if not _cuda_or_cpu(P, "qd_factor"):
+        return qd_factor_plain(P, C, Rdiag, Cnext)
+    B, N, m, dz = _check_kkt_shapes(C, Cnext, "qd_factor", 1, _MAX_M)
+    _kernels.require(P, "qd_factor P", (B, N, dz, dz), like=C)
+    _kernels.require(Rdiag, "qd_factor Rdiag", (B, N, m), like=C)
+    Pinv = torch.empty_like(P)
+    Sinv = torch.empty(B, N, m, m, dtype=P.dtype, device=P.device)
+    lib = _kernels.load("qd")
+    rc = lib.px_qd_factor(_kernels.is_f64(P), P.data_ptr(), C.data_ptr(),
+                          Rdiag.data_ptr(), Cnext.data_ptr(), Pinv.data_ptr(),
+                          Sinv.data_ptr(), B, N, m, dz, _kernels.stream_handle(P))
+    _kernels.LAUNCHES["qd_factor"] += 1
+    _kernels.check(rc, "qd_factor")
+    return Pinv, Sinv
+
+
+def qd_solve(factors, C, Cnext, rhs, dz):
+    """K7 solve with the factors of `qd_factor`; rhs [B, N, dz + m, r]
+    ordered (z, lam) per knot; returns the same shape.
+
+    Replaces piccolax/solver/kkt.py:252 qd_solve (with _qd_block_apply
+    :243). Bound on the H100: the bytes of the factors, read twice; the
+    two sweeps are N knots deep. One warp per problem and column walks
+    both sweeps, lane i owning row i; see csrc/qd.cu.
+    """
+    if not _cuda_or_cpu(rhs, "qd_solve"):
+        return qd_solve_plain(factors, C, Cnext, rhs, dz)
+    Pinv, Sinv = factors
+    B, N, m, dz_c = _check_kkt_shapes(C, Cnext, "qd_solve", 1, _MAX_M)
+    if dz_c != dz:
+        raise ValueError("qd_solve: dz does not match C")
+    r = rhs.shape[-1]
+    _kernels.require(Pinv, "qd_solve Pinv", (B, N, dz, dz), like=C)
+    _kernels.require(Sinv, "qd_solve Sinv", (B, N, m, m), like=C)
+    _kernels.require(rhs, "qd_solve rhs", (B, N, dz + m, r), like=C)
+    out = torch.empty_like(rhs)
+    lib = _kernels.load("qd")
+    rc = lib.px_qd_solve(_kernels.is_f64(rhs), Pinv.data_ptr(), Sinv.data_ptr(),
+                         C.data_ptr(), Cnext.data_ptr(), rhs.data_ptr(),
+                         out.data_ptr(), B, N, m, dz, r,
+                         _kernels.stream_handle(rhs))
+    _kernels.LAUNCHES["qd_solve"] += 1
+    _kernels.check(rc, "qd_solve")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K8: lower-triangular inverse
+# --------------------------------------------------------------------------- #
+
+
+def tri_lower_inv_plain(L):
+    """Plain version of K8: piccolax's nilpotent doubling. L = D(I + N)
+    with N strictly lower, (I + N)^{-1} = prod_j (I + (-N)^(2^j)); returns
+    (I + N)^{-1} D^{-1} for L [..., m, m]."""
+    m = L.shape[-1]
+    eye = torch.eye(m, dtype=L.dtype, device=L.device)
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    X = -(L / d[..., :, None] - eye)
+    acc = eye + X
+    p = X
+    for _ in range(max(0, math.ceil(math.log2(max(m, 2))) - 1)):
+        p = p @ p
+        acc = acc + acc @ p
+    return acc / d[..., None, :]
+
+
+def tri_lower_inv(L):
+    """K8: inverse of every lower-triangular [m, m] block of L [..., m, m]
+    (m <= 32); a zero on the diagonal gives inf / NaN, as in piccolax.
+
+    Replaces piccolax/solver/kkt.py:58 tri_lower_inv. Bound on the H100:
+    bytes (one read of L, one write of its inverse). One warp per block,
+    lane j substituting column j (the second half of K1's routine), four
+    warps per thread block; see csrc/tri_inv.cu. The substitution rounds
+    otherwise than the doubling: they agree relative to ||L^{-1}||.
+    """
+    if not _cuda_or_cpu(L, "tri_lower_inv"):
+        return tri_lower_inv_plain(L)
+    m = L.shape[-1]
+    _kernels.require(L, "tri_lower_inv")
+    if L.dim() < 2 or L.shape[-2] != m or m > _MAX_M:
+        raise ValueError(f"tri_lower_inv: square blocks up to {_MAX_M} "
+                         f"expected, got {tuple(L.shape)}")
+    out = torch.empty_like(L)
+    lib = _kernels.load("tri_inv")
+    rc = lib.px_tri_lower_inv(_kernels.is_f64(L), L.data_ptr(), out.data_ptr(),
+                              L.numel() // (m * m), m, _kernels.stream_handle(L))
+    _kernels.LAUNCHES["tri_lower_inv"] += 1
+    _kernels.check(rc, "tri_lower_inv")
     return out

@@ -197,7 +197,7 @@ def test_entry_points_without_device_raise_without_a_card(arrays):
 
 
 @pytest.mark.parametrize("opts", [
-    dict(kkt_backend="qd"), dict(kkt_backend="native"),
+    dict(kkt_backend="native"),
     dict(hess_mode="shift"), dict(kkt_backend="knot"),
     dict(hess_mode="shift", newton_dir=None),
 ])
@@ -223,7 +223,7 @@ def test_unported_solve_arguments_raise(kw):
 @pytest.mark.parametrize("kw", [
     dict(free_phase=True), dict(leakage_cost=1.0), dict(leakage_indices=[1]),
     dict(options=object()), dict(extra_constraints=[object()]),
-    dict(pade_order=7), dict(global_bounds={"x": (0, 1)}),
+    dict(global_bounds={"x": (0, 1)}),
 ])
 def test_unported_template_options_raise(kw):
     with pytest.raises(NotImplementedError):
