@@ -27,15 +27,29 @@ fatal on failure:
 7. Pade/qd quickstart: phase 5 with SmoothPulseProblem(pade_order=7) and
    IPMOptions(kkt_backend="qd");
 8. batched Pade/qd quickstart: phase 6 with the same two options;
-9. config 1 on the qd backend: phase 4 with kkt_backend="qd".
+9. config 1 on the qd backend: phase 4 with kkt_backend="qd";
+10. config 3: the CNOT (N = 200, T = 50) at B = 16 in float32 on "cr",
+    options as bench.py's config-3 run, gated with a float64 DOP853
+    re-integration (F > 0.999 on all 16);
+11. CNOT on the knot backend: B = 1, float64, kkt_backend="knot" with
+    P = 4 and P = 8 partitions, 40 iterations each beside "cr" from the
+    same Z0 (same it, Z to rtol 1e-7), then one P = 8 solve to its end,
+    gated by DOP853 F > 0.999.
 
-Each of 4-9 resets every launch counter just before it and reads them
+Phase 3 also checks K1-K3 at config 3's shapes ([16, 200, 44, 44], m = 40
+in float32; B = 1 in float64), K4 at the CNOT's 8 x 8 residual sweeps and
+24 x 24 derivative augmentations (both dtypes) and K9 (the knot-partitioned factor and
+solve at the same shapes with P = 4 and 8, and the standalone and batched
+block-tridiagonal solves at [B, 48, 5, 5]).
+
+Each of 4-11 resets every launch counter just before it and reads them
 just after, and fails if a kernel of its path was not launched or a
-kernel of the other path was (no fallback). Prints
+kernel of another path was (no fallback). Prints
 the {"kernels": [...]} record, then as the last line {"ok": true,
 "device": {...}}. Exits nonzero, with no result line, without a card or
 when any phase fails. ``--profile`` also profiles config 1 and the four
-quickstart solves.
+quickstart solves; ``--profile-cnot`` profiles 20-iteration windows of
+config 3 and of the CNOT on "cr" and on "knot" (P = 8).
 """
 
 from __future__ import annotations
@@ -113,10 +127,13 @@ def _card():
     return out[0]
 
 
-def check_kernels(B, N, dz, m, dtype, record, reps=20):
+def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
+                  variant=None):
     """Phase 3, K1-K4: every kernel against its plain version at the
     shapes of a path: B problems of N knots, dz columns, m rows; K4 on the
-    line-search residual sweep and on the derivative augmentations."""
+    line-search residual sweep and on the derivative augmentations (unless
+    k4 is False). clamp: K2's (sweeps, floor), the IPM's for the dtype
+    unless given; variant: the record's key for the shapes."""
     import torch
     from piccolax_torch.ops import expm as ex
     from piccolax_torch.quantum.systems import QuantumSystem
@@ -141,7 +158,7 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20):
     # -- K2: psd_clamp on symmetric indefinite knot Hessians [B, N, dz, dz]
     W = rng.standard_normal((B, N, dz, dz))
     W = t(0.5 * (W + np.swapaxes(W, -1, -2)))
-    iters, floor_rel = (32, 1e-6) if f64 else (15, 3e-3)
+    iters, floor_rel = clamp or ((32, 1e-6) if f64 else (15, 3e-3))
     errs = {}
     for mode in ("pos", "abs"):
         got = kkt.psd_clamp(W, floor_rel, iters, mode)
@@ -158,7 +175,7 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20):
            bound(flops, 2 * M * dz * dz * es),
            _time_ms(lambda: _eigh_clamp(W, floor_rel), reps),
            f"{tol['K2']:.0e} relative, mode pos; mode abs max_err={errs['abs']:.3e}",
-           shape=f"[{B},{N},{dz},{dz}] {dtype}, {iters} sweeps")
+           shape=f"[{B},{N},{dz},{dz}] {dtype}, {iters} sweeps", variant=variant)
 
     # -- K1: chol_inv_factor on SPD knot blocks, 1 in 8 made indefinite
     P = kkt.psd_clamp_plain(W, floor_rel, iters) + \
@@ -181,7 +198,7 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20):
            bound(M * (dz ** 3 + 3 * dz * dz), 2 * M * dz * dz * es),
            _time_ms(lambda: _library_chol_inv(P), reps),
            f"{tol['K1']:.0e} relative, same NaN mask",
-           shape=f"[{B},{N},{dz},{dz}] {dtype}")
+           shape=f"[{B},{N},{dz},{dz}] {dtype}", variant=variant)
 
     # -- K3: condensed factor and solve, [B, N] knots of dz columns, m rows
     C = t(0.3 * rng.standard_normal((B, N, m, dz)))
@@ -198,10 +215,7 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20):
     xp = kkt.condensed_solve_plain(fp, C, Cn, rhs, dz)
     err_s, rel = _rel_err(xk, xp)
     _check(rel < tol["K3"], f"condensed_solve ({dtype}) rel err {rel}")
-    n_lev = Np.bit_length() - 1
-    levels = sum(Np >> (k + 1) for k in range(n_lev)) + 1
-    f_flops = B * (2 * N * m * dz * dz * 2 + N * m * m * dz * 2 * 3
-                   + levels * (m ** 3 + 3 * m * m) + (Np - 1) * 5 * 2 * m ** 3)
+    f_flops = B * (2 * N * m * dz * dz * 2 + N * m * m * dz * 2 * 3 + _cr_flops(Np, m))
     f_bytes = es * B * (N * dz * dz + N * m * dz + N * m + (N - 1) * m * dz
                         + 3 * Np * m * m)
     Xi = fk[0]
@@ -211,9 +225,8 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20):
            _time_ms(lambda: kkt.condense_cr_factor_plain(Xi, C, R, Cn), reps),
            bound(f_flops, f_bytes), None,
            f"{tol['K3']:.0e} relative; timed from the knot factors Xi (K1 excluded)",
-           shape=f"B={B}, N={N}->{Np}, m={m}, dz={dz} {dtype}")
-    s_flops = B * (N * 4 * dz * dz + N * 4 * m * dz * 2
-                   + (Np - 1) * 6 * 2 * m * m + 2 * m * m)
+           shape=f"B={B}, N={N}->{Np}, m={m}, dz={dz} {dtype}", variant=variant)
+    s_flops = B * (N * 4 * dz * dz + N * 4 * m * dz * 2 + _cr_solve_flops(Np, m, 1))
     s_bytes = es * B * (N * dz * dz + N * m * dz + (N - 1) * m * dz
                         + 3 * Np * m * m + 2 * N * (dz + m))
     record("condensed_solve", "piccolax_torch/csrc/condensed_cr.cu",
@@ -221,7 +234,9 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20):
            _time_ms(lambda: kkt.condensed_solve(fk, C, Cn, rhs, dz), reps),
            _time_ms(lambda: kkt.condensed_solve_plain(fp, C, Cn, rhs, dz), reps),
            bound(s_flops, s_bytes), None, f"{tol['K3']:.0e} relative",
-           shape=f"rhs [{B},{N},{dz + m},1] {dtype}")
+           shape=f"rhs [{B},{N},{dz + m},1] {dtype}", variant=variant)
+    if not k4:
+        return
 
     # -- K4: expm on the line-search residual sweep [B * cand * ls, N-1, 4, 4]
     # and on the derivative augmentations [B, N-1, nv^2, 12, 12]
@@ -251,6 +266,52 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20):
            _time_ms(lambda: torch.linalg.matrix_exp(Aexp), reps),
            f"{tol['K4']:.0e} relative (4 x 4 timed; 12 x 12 checked)",
            shape=f"[{B * cand_ls},{N - 1},4,4] {dtype}, order {order}, s={sq}")
+
+
+def check_k4_cnot(B, cand_ls, dtype, record, reps=5):
+    """Phase 3, K4 at the CNOT's shapes and at its integrator's order and
+    squarings: the line-search residual sweep [B * cand_ls, N-1, 8, 8]
+    (cand_ls = directions x ls_iters) and the derivative augmentations
+    [B, N-1, 16, 24, 24] (4 drives, fixed dt), each against the plain
+    version at K4's tolerance (1e-9 relative in float64, 1e-5 in float32)."""
+    import torch
+    import piccolax_torch as pt
+    from piccolax_torch.ops import expm as ex
+
+    dev = torch.device("cuda")
+    dt_ = getattr(torch, dtype)
+    f64 = dtype == "float64"
+    es = 8 if f64 else 4
+    tol = 1e-9 if f64 else 1e-5
+    rng = np.random.default_rng(61 if f64 else 62)
+    prob = pt.cnot_problem(N=C3_N, T=C3_T, device="cuda")
+    intg = prob.integrators[0]
+    sysv = prob.qtraj.system.solver_view().to(dev, dt_)
+    order, sq = (12 if f64 else 8), intg.squarings
+    dt = C3_T / (C3_N - 1)
+    bound_u = prob.qtraj.system.drive_bounds[0][1]
+    u = torch.as_tensor(rng.uniform(-bound_u, bound_u, (B * cand_ls, C3_N - 1, 4)),
+                        dtype=dt_, device=dev)
+    A_res = (dt * sysv.G(u)).contiguous()
+    A = dt * sysv.G(u[:B])
+    E = (dt * sysv.G_drives).expand(*A.shape[:-2], *sysv.G_drives.shape)
+    A_aug = ex.derivative_augmentations(A, E)
+    for key, X in (("residual sweep", A_res), ("derivative augmentations", A_aug)):
+        n = X.shape[-1]
+        got = ex.expm_taylor_fixed(X, order, sq)
+        err, rel = _rel_err(got, ex.expm_taylor_fixed_plain(X, order, sq))
+        _check(rel < tol, f"expm_taylor_fixed CNOT {key} {tuple(X.shape)} ({dtype}) "
+               f"rel err {rel:.3e}")
+        Mx = X.numel() // (n * n)
+        record("expm_taylor_fixed", "piccolax_torch/csrc/expm_taylor.cu",
+               "piccolax/ops/expm.py:143", err,
+               _time_ms(lambda: ex.expm_taylor_fixed(X, order, sq), reps),
+               _time_ms(lambda: ex.expm_taylor_fixed_plain(X, order, sq), reps),
+               _bound(Mx * _taylor_flops(n, order, sq), 2 * Mx * n * n * es, dtype),
+               _time_ms(lambda: torch.linalg.matrix_exp(X), reps),
+               f"{tol:.0e} relative",
+               shape=f"CNOT {key} {list(X.shape)} {dtype}, order {order}, s={sq}",
+               variant=f"config3_{dtype}_{n}x{n}")
 
 
 def _taylor_flops(n, order, sq):
@@ -402,7 +463,7 @@ def check_expm_pade_fixed(record, reps=20):
 
 
 def _qd_inputs(B, N, dz, m, dtype, rng, bad=None):
-    """KKT blocks of the qd backend on the card: P PD (one indefinite
+    """KKT blocks on the card (K7's and K9's checks): P PD (one indefinite
     block at bad = (problem, knot)), C and Cnext 0.3 N(0, 1), R 1e-3 as
     K3's check takes it, plus 1 at the last knot's empty rows. (With the
     float64 IPM's 1e-8 the N = 100 system's condition number amplifies
@@ -548,6 +609,155 @@ def check_tri_lower_inv(record, reps=20):
            "piccolax/solver/kkt.py:58", err, ms, plain_ms, bnd, lib_ms,
            "1e-12 (f64) / 1e-5 (f32) relative to max |L^-1|", shape=key,
            extra={"variants": sub})
+
+
+def _cr_flops(Np, m):
+    """Operations of the CR level loop (K3, K9) on Np rows of m x m
+    blocks: Np Cholesky inverses (m^3 + 3 m^2 each) and 5 products of
+    2 m^3 per eliminated row."""
+    return Np * (m ** 3 + 3 * m * m) + (Np - 1) * 5 * 2 * m ** 3
+
+
+def _cr_solve_flops(Np, m, r):
+    """Operations of one CR solve of r columns on Np rows: 6 products of
+    2 m^2 per eliminated row and column, 2 m^2 at the root."""
+    return ((Np - 1) * 12 + 2) * m * m * r
+
+
+def _knot_counts(N, P, m, r):
+    """Operations of K9's partitioned part, shared by the factor and the
+    standalone solve, from the kernels' bodies: (factor, solve) per
+    problem. Factor: each partition's interior CR (k rows padded to Npk),
+    its SPIKE solve of 2m columns and 3 interface products, then the
+    interface CR (2P rows padded to Npi). Solve of r columns: the interior
+    solves, r_f and r_l, the interface solve and x_int."""
+    from piccolax_torch.solver.kkt import _pow2_pad
+    k = N // P - 2
+    Npk, Npi = _pow2_pad(k), _pow2_pad(2 * P)
+    factor = P * (_cr_flops(Npk, m) + _cr_solve_flops(Npk, m, 2 * m)
+                  + 3 * 2 * m ** 3) + _cr_flops(Npi, m)
+    solve = P * (_cr_solve_flops(Npk, m, r) + 2 * 2 * m * m * r
+                 + k * 2 * 2 * m * m * r) + _cr_solve_flops(Npi, m, r)
+    return factor, solve, (Npk, Npi, k)
+
+
+def check_knot(B, N, dz, m, dtype, record, reps=5):
+    """Phase 3, K9: the knot-partitioned condensed factor (from K1's knot
+    factors Xi, as K3's factor row is timed) and solve against their plain
+    versions at the shapes of a path, P = 8 and 4 partitions: every factor
+    plane and the solution to 1e-9 relative in float64, 1e-3 in float32;
+    the solution also against K3's plain condensed solve ("cr")."""
+    import torch
+    from piccolax_torch.parallel import sharded_kkt as sk
+    from piccolax_torch.solver import kkt
+
+    f64 = dtype == "float64"
+    es = 8 if f64 else 4
+    tol = 1e-9 if f64 else 1e-3
+    rng = np.random.default_rng(41 if f64 else 42)
+    Pm, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng)
+    Xi = kkt.chol_inv_factor(Pm)
+    x_cr = kkt.condensed_solve_plain((Xi, kkt.condense_cr_factor_plain(Xi, C, R, Cn)),
+                                     C, Cn, rhs, dz)
+    for P in (8, 4):
+        fk = sk.knot_condense_factor(Xi, C, R, Cn, P)
+        fp = sk.knot_condense_factor_plain(Xi, C, R, Cn, P)
+        err_f = 0.0
+        for key in ("fT", "spike", "Ub", "f_if"):
+            e, rel = _rel_err(fk[key], fp[key])
+            _check(rel < tol, f"knot factor {key} P={P} ({dtype}) rel err {rel:.3e}")
+            err_f = max(err_f, e)
+        xk = sk.knot_condensed_solve(fk, rhs, P, dz)
+        err_s, rel = _rel_err(xk, sk.knot_condensed_solve_plain(fp, rhs, P, dz))
+        _check(rel < tol, f"knot solve P={P} ({dtype}) rel err {rel:.3e}")
+        _, rel_cr = _rel_err(xk, x_cr)
+        _check(rel_cr < tol, f"knot solve P={P} ({dtype}) vs cr rel err {rel_cr:.3e}")
+        fac, sol, (Npk, Npi, k) = _knot_counts(N, P, m, 1)
+        f_flops = B * (2 * N * m * dz * dz * 2 + N * m * m * dz * 2 * 3 + fac)
+        fact_bytes = P * (3 * Npk * m * m + k * 2 * m * m + 2 * m * m) + 3 * Npi * m * m
+        f_bytes = es * B * (N * dz * dz + N * m * dz + N * m + (N - 1) * m * dz
+                            + fact_bytes)
+        s_flops = B * (N * (8 * dz * dz + 8 * m * dz) + sol)
+        s_bytes = es * B * (N * dz * dz + N * m * dz + (N - 1) * m * dz + fact_bytes
+                            + 2 * N * (dz + m))
+        variant = f"P={P}, B={B} {dtype}"
+        record("knot_factor", "piccolax_torch/csrc/knot.cu",
+               "piccolax/parallel/sharded_kkt.py:149", err_f,
+               _time_ms(lambda: sk.knot_condense_factor(Xi, C, R, Cn, P), reps),
+               _time_ms(lambda: sk.knot_condense_factor_plain(Xi, C, R, Cn, P), reps),
+               _bound(f_flops, f_bytes, dtype), None,
+               f"{tol:.0e} relative on every factor plane; timed from the knot "
+               f"factors Xi (K1 excluded)",
+               shape=f"B={B}, N={N}, P={P}, m={m}, dz={dz} {dtype}", variant=variant)
+        record("knot_solve", "piccolax_torch/csrc/knot.cu",
+               "piccolax/parallel/sharded_kkt.py:194", err_s,
+               _time_ms(lambda: sk.knot_condensed_solve(fk, rhs, P, dz), reps),
+               _time_ms(lambda: sk.knot_condensed_solve_plain(fp, rhs, P, dz), reps),
+               _bound(s_flops, s_bytes, dtype), None,
+               f"{tol:.0e} relative, also against cr ({rel_cr:.1e})",
+               shape=f"rhs [{B},{N},{dz + m},1], P={P} {dtype}", variant=variant)
+
+
+def _dense_tridiag(diag, upper):
+    """The dense [B, N m, N m] matrix of block-tridiagonal systems."""
+    import torch
+    B, N, m, _ = diag.shape
+    S = diag.new_zeros(B, N, m, N, m)
+    idx = torch.arange(N)
+    S[:, idx, :, idx, :] = diag.transpose(0, 1)
+    S[:, idx[:-1], :, idx[1:], :] = upper.transpose(0, 1)
+    S[:, idx[1:], :, idx[:-1], :] = upper.mT.transpose(0, 1)
+    return S.reshape(B, N * m, N * m)
+
+
+def check_knot_tridiag(record, reps=20):
+    """Phase 3, K9's standalone block-tridiagonal solve (on no solve path):
+    tests/test_multichip.py's systems (diag A A^T + 4m I, upper N(0, 1)) at
+    [1, 48, 5, 5] (sharded_spd_tridiag_solve) and [4, 48, 5, 5]
+    (batched_sharded_spd_tridiag_solve), two right-hand sides, P = 8 and 4,
+    float64, 1e-9 relative to the plain version and to a dense Cholesky
+    solve; the library column is torch.linalg.cholesky + cholesky_solve of
+    the assembled dense (N m)^2 matrices."""
+    import torch
+    from piccolax_torch.parallel import sharded_kkt as sk
+
+    rng = np.random.default_rng(51)
+    N, m, r = 48, 5, 2
+    for B in (1, 4):
+        A = rng.standard_normal((B, N, m, m))
+        diag = torch.as_tensor(A @ np.swapaxes(A, -1, -2) + 4 * m * np.eye(m),
+                               device="cuda")
+        upper = torch.as_tensor(rng.standard_normal((B, N - 1, m, m)), device="cuda")
+        rhs = torch.as_tensor(rng.standard_normal((B, N, m, r)), device="cuda")
+        S = _dense_tridiag(diag, upper)
+        b_flat = rhs.reshape(B, N * m, r)
+        ref = torch.cholesky_solve(b_flat, torch.linalg.cholesky(S)).reshape(rhs.shape)
+        for P in (8, 4):
+            if B == 1:
+                fn = lambda: sk.sharded_spd_tridiag_solve(diag[0], upper[0], rhs[0], P)  # noqa: E731
+                fn_p = lambda: sk.sharded_spd_tridiag_solve_plain(diag[0], upper[0], rhs[0], P)  # noqa: E731
+            else:
+                fn = lambda: sk.batched_sharded_spd_tridiag_solve(diag, upper, rhs, P)  # noqa: E731
+                fn_p = lambda: sk.batched_sharded_spd_tridiag_solve_plain(diag, upper, rhs, P)  # noqa: E731
+            got, plain = fn().reshape(rhs.shape), fn_p().reshape(rhs.shape)
+            err, rel = _rel_err(got, plain)
+            _check(rel < 1e-9, f"knot tridiag B={B} P={P} rel err {rel:.3e}")
+            _, rel_d = _rel_err(got, ref)
+            _check(rel_d < 1e-9, f"knot tridiag B={B} P={P} vs dense rel err {rel_d:.3e}")
+            fac, sol, _ = _knot_counts(N, P, m, r)
+            flops = B * (fac + sol)
+            nbytes = 8 * B * (N * m * m + (N - 1) * m * m + 2 * N * m * r)
+            name = "sharded_spd_tridiag_solve" if B == 1 else \
+                "batched_sharded_spd_tridiag_solve"
+            record("knot_tridiag_solve", "piccolax_torch/csrc/knot.cu",
+                   "piccolax/parallel/sharded_kkt.py:64", err, _time_ms(fn, reps),
+                   _time_ms(fn_p, reps), _bound(flops, nbytes, "float64"),
+                   _time_ms(lambda: torch.cholesky_solve(
+                       b_flat, torch.linalg.cholesky(S)), reps),
+                   f"1e-9 relative, also against the dense solve ({rel_d:.1e}); "
+                   f"library: cholesky + cholesky_solve of [{B},{N * m},{N * m}]",
+                   shape=f"{name} [{B},{N},{m},{m}], r={r}, P={P} float64",
+                   variant=f"{name}, P={P}")
 
 
 def _eigh_clamp(W, floor_rel):
@@ -782,6 +992,168 @@ def quickstart_batched(gate, pade_order="taylor", kkt_backend="cr"):
     return launches, (nlp, params, Zb, opts)
 
 
+# config 3: bench.py's config-3 options (bench.py:239-244)
+C3_N, C3_T, C3_B = 200, 50.0, 16
+KNOT_PARTS = (4, 8)
+
+
+def _c3_options(**kw):
+    import piccolax_torch as pt
+    return pt.IPMOptions(**{**dict(max_iter=150, tol=5e-3, constr_viol_tol=5e-3,
+                                   hess_mode="abs", delta_c_f32=1e-4, prox_iter=3),
+                            **kw})
+
+
+def _cnot_fidelities(prob, us, Z, u_sl, U_sl):
+    """Float64 DOP853 re-integration of pulses us [B, N, 4] with the
+    problem's own Hamiltonians (the independent rollout gate), and the
+    solver's final-knot fidelity from Z [B, N, dz]."""
+    from piccolax_torch.verification import (batched_unitary_dop853,
+                                             iso_vec_to_operator_np,
+                                             unitary_fidelity_np)
+    sysq, goal = prob.qtraj.system, prob.qtraj.goal
+    times = np.linspace(0, C3_T, C3_N)
+    U64 = batched_unitary_dop853(sysq.H_drift, np.stack(sysq.H_drives), us, times,
+                                 rtol=1e-10, atol=1e-10)
+    Fs = unitary_fidelity_np(U64, goal)
+    F_rep = unitary_fidelity_np(iso_vec_to_operator_np(Z[:, -1, U_sl]), goal)
+    return Fs, np.abs(F_rep - Fs)
+
+
+# the kernels of the config-3 and the CNOT-knot paths, and those they must not launch
+C3_KERNELS = ["chol_inv_factor", "psd_clamp", "condensed_factor", "condensed_solve",
+              "expm_taylor_fixed"]
+KNOT_KERNELS = ["chol_inv_factor", "psd_clamp", "knot_factor", "knot_solve",
+                "expm_taylor_fixed"]
+OFF_PATH = ["qd_factor", "qd_solve", "expm_pade_fixed", "tri_lower_inv",
+            "knot_tridiag_solve"]
+
+
+def config3():
+    """Phase 10: config 3, the CNOT (N = 200, T = 50), through the port's
+    entry points at B = 16 in float32 on "cr", pulse columns of Z0
+    perturbed by 0.002 N(0, 1) (seed 0) as bench.py does; gated by float64
+    DOP853 F > 0.999 on all 16."""
+    import torch
+    import piccolax_torch as pt
+    from piccolax_torch import _kernels
+
+    prob = pt.cnot_problem(N=C3_N, T=C3_T, device="cuda")
+    nlp, params, Z0, _, layout = prob.build(device="cuda")
+    u_sl, U_sl = layout.slices["u"], layout.slices["U"]
+    rng = np.random.default_rng(0)
+    Zb = np.broadcast_to(Z0.cpu().numpy().astype(np.float32)[None],
+                         (C3_B, C3_N, layout.z_dim)).copy()
+    Zb[:, :, u_sl] += 0.002 * rng.standard_normal(
+        (C3_B, C3_N, u_sl.stop - u_sl.start)).astype(np.float32)
+    Zb = torch.as_tensor(Zb, device="cuda")
+    opts = _c3_options()
+    pt.solve_nlp(nlp, params, Zb, device="cuda", options=_c3_options(max_iter=2))
+    _kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    st = pt.solve_nlp(nlp, params, Zb, options=opts, device="cuda")
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches("config-3", C3_KERNELS,
+                              ["knot_factor", "knot_solve", *OFF_PATH])
+    its = st.it.cpu().numpy()
+    iters = int(its.max())
+    print(f"config-3: B={C3_B} N={C3_N} f32, kkt_backend cr, hess_mode abs, "
+          f"{iters} iterations (max; mean {its.mean():.2f}, min {its.min()}), "
+          f"{seconds:.3f} s, {C3_B / seconds:.3f} solves/s; per IPM iteration: "
+          + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
+          flush=True)
+    Z = st.Z.double().cpu().numpy()
+    _check(np.all(np.isfinite(Z)) and Z.shape == (C3_B, C3_N, layout.z_dim),
+           f"config-3 solution not finite or of shape {Z.shape}")
+    t1 = time.perf_counter()
+    Fs, dF = _cnot_fidelities(prob, Z[:, :, u_sl], Z, u_sl, U_sl)
+    n_conv = int(st.converged.sum().item())
+    print(f"config-3 quality: converged={n_conv}/{C3_B}, f64-DOP853 mean_F="
+          f"{Fs.mean():.6f}, min_F={Fs.min():.6f}, F>0.999 on "
+          f"{int((Fs > 0.999).sum())}/{C3_B}, mean|dF|={dF.mean():.2e}, "
+          f"max|dF|={dF.max():.2e}, dop853 {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    _check(bool(np.all(Fs > 0.999)), f"config-3: F > 0.999 on "
+           f"{int((Fs > 0.999).sum())}/{C3_B} only")
+    return launches, (nlp, params, Zb, opts)
+
+
+def cnot_knot():
+    """Phase 11: the CNOT at B = 1 in float64 on kkt_backend "knot" with
+    P = 4 and 8 partitions: max_iter 40 each beside "cr" from the same Z0
+    (the same it, Z to rtol 1e-7 / atol 1e-9, kkt_err to rtol 1e-4, as
+    tests/test_multichip.py holds piccolax's "knot" against "cr"), then one
+    P = 8 solve to its end (max_iter 250, tol 1e-6), gated by DOP853
+    F > 0.999."""
+    import torch
+    import piccolax_torch as pt
+    from piccolax_torch import _kernels
+
+    prob = pt.cnot_problem(N=C3_N, T=C3_T, device="cuda")
+    nlp, params, Z0, _, layout = prob.build(device="cuda")
+    u_sl, U_sl = layout.slices["u"], layout.slices["U"]
+    runs = {}
+    for backend, P in (("cr", None), *(("knot", P) for P in KNOT_PARTS)):
+        opts = pt.IPMOptions(max_iter=40, tol=1e-6, constr_viol_tol=1e-6,
+                             kkt_backend=backend)
+        _kernels.reset_launch_counts()
+        _sync()
+        t0 = time.perf_counter()
+        st = pt.solve_nlp(nlp, params, Z0, options=opts, mesh=P, device="cuda")
+        _sync()
+        seconds = time.perf_counter() - t0
+        label = "cnot-cr-40" if P is None else f"cnot-knot-P{P}-40"
+        if P is None:
+            _read_launches(label, C3_KERNELS, ["knot_factor", "knot_solve", *OFF_PATH])
+        else:
+            _read_launches(label, KNOT_KERNELS,
+                           ["condensed_factor", "condensed_solve", *OFF_PATH])
+        runs[P] = st
+        print(f"{label}: B=1 N={C3_N} f64, {int(st.it)} iterations, {seconds:.3f} s "
+              f"({1e3 * seconds / int(st.it):.1f} ms per iteration), kkt_err "
+              f"{float(st.kkt_err):.6e}", flush=True)
+    ref = runs[None]
+    for P in KNOT_PARTS:
+        st = runs[P]
+        _check(int(st.it) == int(ref.it), f"knot P={P}: it {int(st.it)} "
+               f"against cr's {int(ref.it)}")
+        dZ = (st.Z - ref.Z).abs()
+        _check(bool((dZ <= 1e-9 + 1e-7 * ref.Z.abs()).all()),
+               f"knot P={P}: Z differs from cr by up to {dZ.max().item():.3e}")
+        dk = abs(float(st.kkt_err) - float(ref.kkt_err))
+        _check(dk <= 1e-4 * abs(float(ref.kkt_err)),
+               f"knot P={P}: kkt_err differs from cr by {dk:.3e}")
+        print(f"cnot-knot-P{P} vs cr (max_iter 40): same it, max|dZ| "
+              f"{dZ.max().item():.3e}, |d kkt_err| {dk:.3e}", flush=True)
+
+    P = max(KNOT_PARTS)
+    opts = pt.IPMOptions(max_iter=250, tol=1e-6, constr_viol_tol=1e-6,
+                         kkt_backend="knot")
+    _kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    st = pt.solve_nlp(nlp, params, Z0, options=opts, mesh=P, device="cuda")
+    _sync()
+    seconds = time.perf_counter() - t0
+    label = f"cnot-knot-P{P}"
+    launches = _read_launches(label, KNOT_KERNELS,
+                              ["condensed_factor", "condensed_solve", *OFF_PATH])
+    iters = int(st.it)
+    Z = st.Z[None].double().cpu().numpy()
+    _check(np.all(np.isfinite(Z)), f"{label}: solution not finite")
+    Fs, dF = _cnot_fidelities(prob, Z[:, :, u_sl], Z, u_sl, U_sl)
+    print(f"{label}: B=1 N={C3_N} f64, {iters} iterations, converged="
+          f"{bool(st.converged)}, stalled={bool(st.stalled)}, {seconds:.3f} s "
+          f"({1e3 * seconds / iters:.1f} ms per iteration), f64-DOP853 "
+          f"F={Fs[0]:.9f}, |dF|={dF[0]:.3e}; per IPM iteration: "
+          + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
+          flush=True)
+    _check(Fs[0] > 0.999, f"{label}: F {Fs[0]} <= 0.999")
+    return launches, (nlp, params, Z0)
+
+
 def profile(name, fn):
     """Run fn under torch.profiler: wall, device busy time and idle share of
     the profiled run, and device time by kernel."""
@@ -817,6 +1189,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile config 1 and the four quickstart solves")
+    ap.add_argument("--profile-cnot", action="store_true",
+                    help="also profile 20 iterations of config 3 and of the "
+                         "CNOT on cr and on knot")
     args = ap.parse_args()
 
     import torch
@@ -835,18 +1210,18 @@ def main():
     rows = {}
 
     def record(name, source, replaces, err, ms, plain_ms, bound, library_ms,
-               tol, shape, extra=None):
+               tol, shape, extra=None, variant=None):
         bound_ms, bound_by = bound
         lib = "none (no single PyTorch call)" if library_ms is None \
             else f"{library_ms:.4f}"
         print(f"{name} {shape}: max_err={err:.3e} ({tol}), kernel_ms={ms:.4f}, "
               f"plain_ms={plain_ms:.4f}, library_ms={lib}, "
-              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+              f"bound_ms={bound_ms:.4g} ({bound_by})", flush=True)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "shape": shape, **(extra or {})}
-        if name in rows:                       # the float64 quickstart shapes
-            rows[name]["float64_quickstart"] = row
+        if name in rows:                # the float64 quickstart or another variant
+            rows[name][variant or "float64_quickstart"] = row
             return
         rows[name] = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": 0, **row}
@@ -858,6 +1233,17 @@ def main():
     check_qd(256, 50, 14, 12, "float32", record)
     check_qd(QS_B, QS_N, 15, 13, "float64", record, reps=5)
     check_tri_lower_inv(record, reps=5)
+    check_kernels(C3_B, C3_N, 44, 40, "float32", record, reps=5, clamp=(20, 3e-3),
+                  k4=False, variant="config3_float32")
+    check_kernels(1, C3_N, 44, 40, "float64", record, reps=5, k4=False,
+                  variant="config3_float64")
+    # phase 10: B = 16, f32, no Newton candidate (2 directions x 8 steps);
+    # phase 11: B = 1, f64, with it (3 x 8)
+    check_k4_cnot(C3_B, 2 * 8, "float32", record)
+    check_k4_cnot(1, 3 * 8, "float64", record)
+    check_knot(1, C3_N, 44, 40, "float64", record)
+    check_knot(C3_B, C3_N, 44, 40, "float32", record)
+    check_knot_tridiag(record)
 
     paths = {}
     paths["config1"], run1 = config1(256, 50, 10.0)
@@ -867,6 +1253,8 @@ def main():
     paths["quickstart_pade7_qd_b256"], run_pq = quickstart_batched(
         gate=0.9, pade_order=7, kkt_backend="qd")
     paths["config1_qd"], _ = config1(256, 50, 10.0, kkt_backend="qd")
+    paths["config3"], run3 = config3()
+    paths[f"cnot_knot_p{max(KNOT_PARTS)}"], run_k = cnot_knot()
     if args.profile:
         profile("config 1 solve (B=256, f32)",
                 lambda: pt.solve_nlp(*run1[:3], options=run1[3], device="cuda"))
@@ -882,6 +1270,17 @@ def main():
                                    options=_qs_options("qd")))
         profile("batched Pade/qd quickstart solve (B=256, f64)",
                 lambda: pt.solve_nlp(*run_pq[:3], options=run_pq[3], device="cuda"))
+    if args.profile_cnot:
+        nlp3, params3, Zb3, _ = run3
+        profile("config 3, 20 iterations (B=16, f32, cr)",
+                lambda: pt.solve_nlp(nlp3, params3, Zb3, device="cuda",
+                                     options=_c3_options(max_iter=20)))
+        nlpk, paramsk, Z0k = run_k
+        for backend, P in (("cr", None), ("knot", max(KNOT_PARTS))):
+            profile(f"CNOT, 20 iterations (B=1, f64, {backend}, P={P})",
+                    lambda: pt.solve_nlp(nlpk, paramsk, Z0k, mesh=P, device="cuda",
+                                         options=pt.IPMOptions(
+                                             max_iter=20, kkt_backend=backend)))
     for name, r in rows.items():
         r["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

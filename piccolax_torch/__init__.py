@@ -23,8 +23,8 @@ torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
-from . import control, quantum, solver  # noqa: E402
-from .benchmarks import sx_gate_problem  # noqa: E402
+from . import control, parallel, quantum, solver  # noqa: E402
+from .benchmarks import cnot_problem, sx_gate_problem  # noqa: E402
 from .control import QuantumControlProblem, SmoothPulseProblem, build_nlp  # noqa: E402
 from .convert import nlp_from_numpy  # noqa: E402
 from .ops.expm import expm  # noqa: E402
@@ -43,6 +43,6 @@ __all__ = [
     "QuantumControlProblem", "QuantumSystem", "SmoothPulseProblem",
     "Trajectory", "UnitaryTrajectory", "ZeroOrderPulse", "build_nlp",
     "discretize", "expm", "extract_pulse", "nlp_from_numpy", "solve_nlp",
-    "sx_gate_problem", "unitary_fidelity", "unitary_rollout",
+    "cnot_problem", "sx_gate_problem", "unitary_fidelity", "unitary_rollout",
     "unitary_rollout_fidelity",
 ]

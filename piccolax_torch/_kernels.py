@@ -7,7 +7,8 @@ by a hash of the sources and flags, and raises if nvcc fails. Nothing is
 built or loaded when the module is imported.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made: a wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else (one for each call
+of a K9 wrapper, whose C entry launches two to five kernels in a row).
 """
 
 from __future__ import annotations
@@ -27,14 +28,15 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "load", "build", "check",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "expm_taylor", "expm_pade13",
-            "expm_pade_fixed", "qd", "tri_inv")
+            "expm_pade_fixed", "qd", "tri_inv", "knot")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"chol_inv_factor": 0, "psd_clamp": 0, "condensed_factor": 0,
             "condensed_solve": 0, "expm_taylor_fixed": 0, "expm_pade13": 0,
             "expm_pade_fixed": 0, "qd_factor": 0, "qd_solve": 0,
-            "tri_lower_inv": 0}
+            "tri_lower_inv": 0, "knot_factor": 0, "knot_solve": 0,
+            "knot_tridiag_solve": 0}
 
 _LIBS: dict = {}
 
@@ -60,6 +62,13 @@ _SIGNATURES = {
         "px_qd_solve": ([_C, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P], _C),
     },
     "tri_inv": {"px_tri_lower_inv": ([_C, _P, _P, _L, _C, _P], _C)},
+    "knot": {
+        "px_knot_factor_ws": ([_C] * 5, _L),
+        "px_knot_solve_ws": ([_C] * 6, _L),
+        "px_knot_factor": ([_C] + [_P] * 9 + [_C] * 5 + [_P], _C),
+        "px_knot_solve": ([_C] + [_P] * 10 + [_C] * 6 + [_P], _C),
+        "px_knot_tridiag_solve": ([_C] + [_P] * 10 + [_C] * 5 + [_P], _C),
+    },
 }
 
 

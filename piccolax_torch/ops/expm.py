@@ -28,7 +28,8 @@ from .._device import resolve_device
 
 __all__ = ["TAYLOR_THETA", "PADE_ORDERS", "pade_radius", "expm_taylor_fixed",
            "expm_taylor_fixed_plain", "expm_pade_fixed", "expm_pade_fixed_plain",
-           "expm_action", "expm_fixed", "expm_fixed_derivatives", "expm", "expm_plain",
+           "expm_action", "expm_fixed", "derivative_augmentations",
+           "expm_fixed_derivatives", "expm", "expm_plain",
            "pade13_squarings", "anti_hermitian_by_squarings"]
 
 _FACT = [1.0]
@@ -208,6 +209,21 @@ def expm_fixed(A, order, squarings: int):
     return expm_pade_fixed(A, order, squarings)
 
 
+def derivative_augmentations(A, E):
+    """The block upper-triangular M_ij = [[A, E_i, 0], [0, A, E_j],
+    [0, 0, A]] of `expm_fixed_derivatives`, [..., d * d, 3w, 3w] for
+    A [..., w, w] and directions E [..., d, w, w]."""
+    w = A.shape[-1]
+    d = E.shape[-3]
+    lead = A.shape[:-2]
+    M = A.new_zeros(*lead, d, d, 3 * w, 3 * w)
+    for b in range(3):
+        M[..., b * w:(b + 1) * w, b * w:(b + 1) * w] = A[..., None, None, :, :]
+    M[..., 0:w, w:2 * w] = E[..., :, None, :, :]
+    M[..., w:2 * w, 2 * w:] = E[..., None, :, :, :]
+    return M.reshape(*lead, d * d, 3 * w, 3 * w).contiguous()
+
+
 def expm_fixed_derivatives(A, E, order, squarings: int):
     """r(A) and its exact first and second directional derivatives along
     the directions E [..., d, w, w], for A [..., w, w], in ONE expm call.
@@ -227,13 +243,8 @@ def expm_fixed_derivatives(A, E, order, squarings: int):
     w = A.shape[-1]
     d = E.shape[-3]
     lead = A.shape[:-2]
-    M = A.new_zeros(*lead, d, d, 3 * w, 3 * w)
-    for b in range(3):
-        M[..., b * w:(b + 1) * w, b * w:(b + 1) * w] = A[..., None, None, :, :]
-    M[..., 0:w, w:2 * w] = E[..., :, None, :, :]
-    M[..., w:2 * w, 2 * w:] = E[..., None, :, :, :]
-    R = expm_fixed(M.reshape(*lead, d * d, 3 * w, 3 * w).contiguous(),
-                   order, squarings).reshape(M.shape)
+    R = expm_fixed(derivative_augmentations(A, E), order,
+                   squarings).reshape(*lead, d, d, 3 * w, 3 * w)
     idx = torch.arange(d, device=A.device)
     Phi = R[..., 0, 0, :w, :w]
     dPhi = R[..., idx, idx, :w, w:2 * w]

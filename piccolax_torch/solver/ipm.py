@@ -13,8 +13,10 @@ parallel Armijo search on an augmented-Lagrangian merit), with the
 - the loop ends when every problem is done or max_iter is reached, with
   one host sync per iteration.
 
-The port runs kkt_backend "cr" (condensed KKT by cyclic reduction) or
-"qd" (the sequential quasidefinite recursion along the knots) with
+The port runs kkt_backend "cr" (condensed KKT by cyclic reduction), "qd"
+(the sequential quasidefinite recursion along the knots) or "knot" (the
+condensed KKT with its knot axis cut into `mesh` partitions, one problem
+at a time) with
 hess_mode "clamp" or "abs", with the exact-Newton candidate (newton_dir;
 on by default in float64) or without it; every other option raises
 NotImplementedError.
@@ -28,6 +30,8 @@ import math
 import torch
 
 from .._device import resolve_device
+from ..parallel.sharded_kkt import (check_partitions, knot_condensed_factor,
+                                    knot_condensed_solve)
 from .kkt import (condensed_factor, condensed_solve, psd_clamp, qd_factor,
                   qd_solve)
 from .nlp import (CollocationNLP, nlp_constraint_residuals, nlp_total_cost,
@@ -152,23 +156,36 @@ def _derivatives(nlp: CollocationNLP, Z, params, lam):
     return g, Cself, Cnext, 0.5 * (H + H.mT)
 
 
-# (factor, solve) of each ported KKT backend: factor(W, Cself, reg, Cn)
-# and solve(factors, Cself, Cn, rhs, dz)
-_KKT_BACKENDS = {"cr": (condensed_factor, condensed_solve),
-                 "qd": (qd_factor, qd_solve)}
+def _knot_backend(B, N, mesh):
+    if mesh is None:
+        raise ValueError("kkt_backend='knot' needs solve_nlp(..., mesh=...)")
+    if B != 1:
+        raise ValueError(f"kkt_backend='knot' solves one problem at a time, "
+                         f"got a batch of {B}")
+    check_partitions(N, mesh)
+    return (lambda W, C, reg, Cn: knot_condensed_factor(W, C, reg, Cn, mesh),
+            lambda f, C, Cn, r, dz: knot_condensed_solve(f, r, mesh, dz))
+
+
+# each ported KKT backend: (B, N, mesh) -> (factor, solve), with
+# factor(W, Cself, reg, Cn) and solve(factors, Cself, Cn, rhs, dz)
+_KKT_BACKENDS = {"cr": lambda B, N, mesh: (condensed_factor, condensed_solve),
+                 "qd": lambda B, N, mesh: (qd_factor, qd_solve),
+                 "knot": _knot_backend}
 
 
 def _check_options(o: IPMOptions):
     if o.kkt_backend not in _KKT_BACKENDS:
         raise NotImplementedError(f"kkt_backend={o.kkt_backend!r} (only "
-                                  f"{' and '.join(map(repr, _KKT_BACKENDS))})")
+                                  f"{', '.join(map(repr, _KKT_BACKENDS))})")
     if o.hess_mode not in ("clamp", "abs"):
         raise NotImplementedError(f"hess_mode={o.hess_mode!r}")
 
 
 def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
-           resume_from=None):
-    """Build (initial state, iteration body) for a batch Z0 [B, N, dz]."""
+           mesh=None, resume_from=None):
+    """Build (initial state, iteration body) for a batch Z0 [B, N, dz];
+    mesh is the knot partition count of kkt_backend "knot"."""
     o = options
     if resume_from is not None:
         raise NotImplementedError("resume_from")
@@ -180,7 +197,7 @@ def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
     kw = dict(dtype=dtype, device=dev)
     is_f32 = dtype == torch.float32
     _check_options(o)
-    factor_fn, solve_fn = _KKT_BACKENDS[o.kkt_backend]
+    factor_fn, solve_fn = _KKT_BACKENDS[o.kkt_backend](B, N, mesh)
     use_newton = o.newton_dir if o.newton_dir is not None else not is_f32
     delta_c = max(o.delta_c, o.delta_c_f32) if is_f32 else o.delta_c
     hess_floor = max(o.hess_floor, o.hess_floor_f32) if is_f32 else o.hess_floor
@@ -514,11 +531,14 @@ def solve_nlp(nlp: CollocationNLP, params, Z0, g0=None,
     """Solve the collocation NLP for a batch of starting points Z0
     [B, N, dz] (or one [N, dz]) in the dtype of Z0, on `device` (the card
     unless the caller passes "cpu"). nlp and params are moved to that
-    device and dtype. Returns the final IPMState."""
+    device and dtype. Returns the final IPMState.
+
+    mesh: for kkt_backend "knot", the number P of partitions the knot axis
+    is cut into on the one card (piccolax's mesh.shape[knot_axis]); N
+    divisible by P with N / P >= 3, and one problem (Z0 [N, dz] or B = 1),
+    as piccolax's knot path is not vmappable. Other backends ignore it."""
     if callback is not None:
         raise NotImplementedError("callback")
-    if mesh is not None:
-        raise NotImplementedError("mesh / the knot-sharded backend")
     device = resolve_device(device)
     Z0 = torch.as_tensor(Z0).to(device)
     dtype = Z0.dtype
@@ -527,7 +547,8 @@ def solve_nlp(nlp: CollocationNLP, params, Z0, g0=None,
         Z0 = Z0[None]
     nlp = nlp.to(device, dtype)
     params = params_to(params, device, dtype)
-    state, body = _setup(nlp, params, Z0, g0, options, resume_from=resume_from)
+    state, body = _setup(nlp, params, Z0, g0, options, mesh=mesh,
+                         resume_from=resume_from)
     while True:
         active = (state.it < options.max_iter) & ~(state.converged | state.stalled)
         if not bool(active.any()):

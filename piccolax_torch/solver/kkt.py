@@ -45,7 +45,10 @@ __all__ = [
     "tri_lower_inv", "tri_lower_inv_plain",
 ]
 
-_MAX_M = 32
+# Block limits of the kernels: K1, K2, K3 (and K9) run K1's warp routine,
+# a lane owning two rows; K7 and K8 give one lane one row.
+_MAX_M = 64
+_MAX_M_LANE = 32
 
 
 def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:
@@ -79,11 +82,11 @@ def chol_inv_factor_plain(A):
 
 
 def chol_inv_factor(A):
-    """K1: Xi with A^{-1} = Xi^T Xi for SPD A [..., m, m], m <= 32.
+    """K1: Xi with A^{-1} = Xi^T Xi for SPD A [..., m, m], m <= 64.
 
     Replaces piccolax/solver/kkt.py: chol_inv_factor. Bound on the H100:
     bytes (one read of A, one write of Xi). One warp per block, the block
-    in shared memory; see csrc/chol_inv.cu.
+    in shared memory, a lane owning rows i and i + 32; see csrc/chol_inv.cu.
     """
     if not _cuda_or_cpu(A, "chol_inv_factor"):
         return chol_inv_factor_plain(A)
@@ -135,13 +138,14 @@ def psd_clamp_plain(W, floor_rel, iters: int = 32, mode: str = "pos"):
 
 
 def psd_clamp(W, floor_rel, iters: int = 32, mode: str = "pos"):
-    """K2: PSD convexification of symmetric W [..., n, n], n <= 32.
+    """K2: PSD convexification of symmetric W [..., n, n], n <= 64.
 
     mode "pos": ~U max(lam, 0) U^T + floor I; mode "abs": ~U |lam| U^T +
     floor I, floor = max(floor_rel, 0.5 * 1.5^-iters) * max(1, s).
     Replaces piccolax/solver/kkt.py: psd_clamp. Bound on the H100: float32
-    arithmetic (2 products of n^3 per sweep). One thread per entry, the
-    block in shared memory; see csrc/psd_clamp.cu.
+    arithmetic (2 products of n^3 per sweep). One thread per entry (up to
+    1024 threads, then a few entries each), the block in shared memory; see
+    csrc/psd_clamp.cu.
     """
     if mode not in ("pos", "abs"):
         raise ValueError(f"psd_clamp: unknown mode {mode!r}")
@@ -280,14 +284,15 @@ def condensed_solve_plain(factors, C, Cnext, rhs, dz):
     return torch.cat([z, lam], dim=-2)
 
 
-def _check_kkt_shapes(C, Cnext, what, min_knots=2, max_dz=math.inf):
+def _check_kkt_shapes(C, Cnext, what, min_knots=2, max_dz=math.inf,
+                      max_m=_MAX_M):
     """(B, N, m, dz) of the blocks a KKT kernel takes, after checking
-    N >= min_knots, m <= 32 and dz <= max_dz."""
+    N >= min_knots, m <= max_m and dz <= max_dz."""
     if C.dim() != 4:
         raise ValueError(f"{what}: C [B, N, m, dz] expected, got {tuple(C.shape)}")
     B, N, m, dz = C.shape
-    if N < min_knots or m > _MAX_M or dz > max_dz:
-        raise ValueError(f"{what}: N >= {min_knots}, m <= {_MAX_M} and dz <= "
+    if N < min_knots or m > max_m or dz > max_dz:
+        raise ValueError(f"{what}: N >= {min_knots}, m <= {max_m} and dz <= "
                          f"{max_dz} expected, got {tuple(C.shape)}")
     _kernels.require(C, f"{what} C")
     _kernels.require(Cnext, f"{what} Cnext", (B, N - 1, m, dz), like=C)
@@ -328,9 +333,10 @@ def condensed_factor(P, C, Rdiag, Cnext):
     Returns (Xi, cr).
 
     Replaces piccolax/solver/kkt.py: condensed_factor over cr_factor: K1 on
-    the knot blocks, then the K3 factor launch. The KKT blocks are 12 x 12,
-    so the bound is the bytes of P, C and the factor; one thread block per
-    problem runs the whole level loop, so a factor is two launches.
+    the knot blocks, then the K3 factor launch. The KKT blocks are 12 x 12
+    on config 1 and 40 x 40 on config 3 (m <= 64), so the bound is the bytes
+    of P, C and the factor; one thread block per problem runs the whole
+    level loop, so a factor is two launches.
     """
     if not _cuda_or_cpu(P, "condensed_factor"):
         return condensed_factor_plain(P, C, Rdiag, Cnext)
@@ -451,7 +457,8 @@ def qd_factor(P, C, Rdiag, Cnext):
     """
     if not _cuda_or_cpu(P, "qd_factor"):
         return qd_factor_plain(P, C, Rdiag, Cnext)
-    B, N, m, dz = _check_kkt_shapes(C, Cnext, "qd_factor", 1, _MAX_M)
+    B, N, m, dz = _check_kkt_shapes(C, Cnext, "qd_factor", 1, _MAX_M_LANE,
+                                    _MAX_M_LANE)
     _kernels.require(P, "qd_factor P", (B, N, dz, dz), like=C)
     _kernels.require(Rdiag, "qd_factor Rdiag", (B, N, m), like=C)
     Pinv = torch.empty_like(P)
@@ -477,7 +484,8 @@ def qd_solve(factors, C, Cnext, rhs, dz):
     if not _cuda_or_cpu(rhs, "qd_solve"):
         return qd_solve_plain(factors, C, Cnext, rhs, dz)
     Pinv, Sinv = factors
-    B, N, m, dz_c = _check_kkt_shapes(C, Cnext, "qd_solve", 1, _MAX_M)
+    B, N, m, dz_c = _check_kkt_shapes(C, Cnext, "qd_solve", 1, _MAX_M_LANE,
+                                      _MAX_M_LANE)
     if dz_c != dz:
         raise ValueError("qd_solve: dz does not match C")
     r = rhs.shape[-1]
@@ -530,8 +538,8 @@ def tri_lower_inv(L):
         return tri_lower_inv_plain(L)
     m = L.shape[-1]
     _kernels.require(L, "tri_lower_inv")
-    if L.dim() < 2 or L.shape[-2] != m or m > _MAX_M:
-        raise ValueError(f"tri_lower_inv: square blocks up to {_MAX_M} "
+    if L.dim() < 2 or L.shape[-2] != m or m > _MAX_M_LANE:
+        raise ValueError(f"tri_lower_inv: square blocks up to {_MAX_M_LANE} "
                          f"expected, got {tuple(L.shape)}")
     out = torch.empty_like(L)
     lib = _kernels.load("tri_inv")

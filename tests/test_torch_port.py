@@ -198,7 +198,7 @@ def test_entry_points_without_device_raise_without_a_card(arrays):
 
 @pytest.mark.parametrize("opts", [
     dict(kkt_backend="native"),
-    dict(hess_mode="shift"), dict(kkt_backend="knot"),
+    dict(hess_mode="shift"), dict(hess_mode="shift", kkt_backend="qd"),
     dict(hess_mode="shift", newton_dir=None),
 ])
 def test_unported_solver_options_raise(opts):

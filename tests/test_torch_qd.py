@@ -179,9 +179,14 @@ def test_tri_lower_inv_matches_jax(m):
 
 @pytest.mark.parametrize("backend", ["native", "knot"])
 def test_unported_kkt_backends_still_raise(backend):
+    """"native" is not ported: NotImplementedError naming the ported
+    backends. "knot" is, and without solve_nlp(mesh=...) raises piccolax's
+    ValueError."""
     nlp, params, Z0, _, _ = pt.sx_gate_problem(N=11, T=2.0, device="cpu").build(
         device="cpu")
-    with pytest.raises(NotImplementedError, match="'cr' and 'qd'"):
+    err, match = ((NotImplementedError, "'cr', 'qd', 'knot'") if backend == "native"
+                  else (ValueError, "needs solve_nlp"))
+    with pytest.raises(err, match=match):
         pt.solve_nlp(nlp, params, Z0[None], device="cpu",
                      options=pt.IPMOptions(kkt_backend=backend))
 
