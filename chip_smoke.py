@@ -15,8 +15,13 @@ fatal on failure:
    every squaring count 0..16, K6 (fixed-order Pade expm, orders 3-9) at
    the Pade quickstart's residual and derivative shapes, K7 (the qd KKT
    factor and solve, with one indefinite block whose NaNs must stay in
-   its problem) at the quickstart's and config 1's shapes, and K8 (the
-   lower-triangular inverse, on no solve path) at [25600, 16 | 32, 16 | 32];
+   its problem) at config 1's, the quickstart's (B = 256 and 1) and the
+   CNOT's shapes, at its caps (64 in float32, 48 in float64) and at N = 1
+   and 2 (float32 against the plain version in float64, on three seeds),
+   at a sweep of widths that reaches every pivot count of its Cholesky
+   inverse, then that K7 and K8 refuse wider blocks, and K8 (the
+   lower-triangular inverse, on no solve path) at [25600, m, m] for
+   m = 16, 32, 44, 64;
 4. config 1: the SX gate (N = 50, T = 10) at B = 256 in float32, gated
    with a float64 DOP853 re-integration;
 5. quickstart: docs/quickstart.py steps 1-5 (N = 100, T = 10, free
@@ -34,22 +39,30 @@ fatal on failure:
 11. CNOT on the knot backend: B = 1, float64, kkt_backend="knot" with
     P = 4 and P = 8 partitions, 40 iterations each beside "cr" from the
     same Z0 (same it, Z to rtol 1e-7), then one P = 8 solve to its end,
-    gated by DOP853 F > 0.999.
+    gated by DOP853 F > 0.999;
+12. qd on the CNOT: phase 10 with kkt_backend="qd" (B = 16, float32, the
+    same gate), then the CNOT at B = 1 in float64 on "qd": 40 iterations
+    reported beside phase 11's "cr" run (the largest Z difference), and
+    one solve to its end (max_iter 250, tol 1e-6), gated by DOP853
+    F > 0.999.
 
 Phase 3 also checks K1-K3 at config 3's shapes ([16, 200, 44, 44], m = 40
-in float32; B = 1 in float64), K4 at the CNOT's 8 x 8 residual sweeps and
-24 x 24 derivative augmentations (both dtypes) and K9 (the knot-partitioned factor and
-solve at the same shapes with P = 4 and 8, and the standalone and batched
-block-tridiagonal solves at [B, 48, 5, 5]).
+in float32; B = 1 in float64), K4 and K6 (Pade order 7) at the CNOT's 8 x 8
+residual sweeps and 24 x 24 derivative augmentations (both dtypes) and K9
+(the knot-partitioned factor and solve at the same shapes with P = 4 and
+8, and the standalone and batched block-tridiagonal solves at
+[B, 48, 5, 5]).
 
-Each of 4-11 resets every launch counter just before it and reads them
+Each of 4-12 resets every launch counter just before it and reads them
 just after, and fails if a kernel of its path was not launched or a
 kernel of another path was (no fallback). Prints
 the {"kernels": [...]} record, then as the last line {"ok": true,
 "device": {...}}. Exits nonzero, with no result line, without a card or
 when any phase fails. ``--profile`` also profiles config 1 and the four
 quickstart solves; ``--profile-cnot`` profiles 20-iteration windows of
-config 3 and of the CNOT on "cr" and on "knot" (P = 8).
+config 3 and of the CNOT on "cr" and on "knot" (P = 8); ``--profile-qd``
+20-iteration windows of every "qd" path (the Pade/qd quickstart at B = 1
+and 256, config 1, config 3 and the CNOT).
 """
 
 from __future__ import annotations
@@ -268,12 +281,13 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
            shape=f"[{B * cand_ls},{N - 1},4,4] {dtype}, order {order}, s={sq}")
 
 
-def check_k4_cnot(B, cand_ls, dtype, record, reps=5):
-    """Phase 3, K4 at the CNOT's shapes and at its integrator's order and
-    squarings: the line-search residual sweep [B * cand_ls, N-1, 8, 8]
-    (cand_ls = directions x ls_iters) and the derivative augmentations
-    [B, N-1, 16, 24, 24] (4 drives, fixed dt), each against the plain
-    version at K4's tolerance (1e-9 relative in float64, 1e-5 in float32)."""
+def check_expm_cnot(B, cand_ls, dtype, record, reps=5, pade_order=None):
+    """Phase 3, K4 (or K6 with pade_order) at the CNOT's shapes and at its
+    integrator's order and squarings: the line-search residual sweep
+    [B * cand_ls, N-1, 8, 8] (cand_ls = directions x ls_iters) and the
+    derivative augmentations [B, N-1, 16, 24, 24] (4 drives, fixed dt),
+    each against the plain version at the kernel's tolerance (K4: 1e-9
+    relative in float64, 1e-5 in float32; K6: 1e-12 and 1e-5)."""
     import torch
     import piccolax_torch as pt
     from piccolax_torch.ops import expm as ex
@@ -282,12 +296,20 @@ def check_k4_cnot(B, cand_ls, dtype, record, reps=5):
     dt_ = getattr(torch, dtype)
     f64 = dtype == "float64"
     es = 8 if f64 else 4
-    tol = 1e-9 if f64 else 1e-5
-    rng = np.random.default_rng(61 if f64 else 62)
-    prob = pt.cnot_problem(N=C3_N, T=C3_T, device="cuda")
+    rng = np.random.default_rng((61 if f64 else 62) + (0 if pade_order is None else 2))
+    kw = {} if pade_order is None else {"pade_order": pade_order}
+    prob = pt.cnot_problem(N=C3_N, T=C3_T, device="cuda", **kw)
     intg = prob.integrators[0]
     sysv = prob.qtraj.system.solver_view().to(dev, dt_)
-    order, sq = (12 if f64 else 8), intg.squarings
+    if pade_order is None:
+        name, src, line = "expm_taylor_fixed", "expm_taylor.cu", 143
+        fn, plain = ex.expm_taylor_fixed, ex.expm_taylor_fixed_plain
+        order, tol, flops = (12 if f64 else 8), (1e-9 if f64 else 1e-5), _taylor_flops
+    else:
+        name, src, line = "expm_pade_fixed", "expm_pade_fixed.cu", 105
+        fn, plain = ex.expm_pade_fixed, ex.expm_pade_fixed_plain
+        order, tol, flops = pade_order, (1e-12 if f64 else 1e-5), _pade_fixed_flops
+    sq = intg.squarings
     dt = C3_T / (C3_N - 1)
     bound_u = prob.qtraj.system.drive_bounds[0][1]
     u = torch.as_tensor(rng.uniform(-bound_u, bound_u, (B * cand_ls, C3_N - 1, 4)),
@@ -298,16 +320,14 @@ def check_k4_cnot(B, cand_ls, dtype, record, reps=5):
     A_aug = ex.derivative_augmentations(A, E)
     for key, X in (("residual sweep", A_res), ("derivative augmentations", A_aug)):
         n = X.shape[-1]
-        got = ex.expm_taylor_fixed(X, order, sq)
-        err, rel = _rel_err(got, ex.expm_taylor_fixed_plain(X, order, sq))
-        _check(rel < tol, f"expm_taylor_fixed CNOT {key} {tuple(X.shape)} ({dtype}) "
+        err, rel = _rel_err(fn(X, order, sq), plain(X, order, sq))
+        _check(rel < tol, f"{name} CNOT {key} {tuple(X.shape)} ({dtype}) "
                f"rel err {rel:.3e}")
         Mx = X.numel() // (n * n)
-        record("expm_taylor_fixed", "piccolax_torch/csrc/expm_taylor.cu",
-               "piccolax/ops/expm.py:143", err,
-               _time_ms(lambda: ex.expm_taylor_fixed(X, order, sq), reps),
-               _time_ms(lambda: ex.expm_taylor_fixed_plain(X, order, sq), reps),
-               _bound(Mx * _taylor_flops(n, order, sq), 2 * Mx * n * n * es, dtype),
+        record(name, f"piccolax_torch/csrc/{src}", f"piccolax/ops/expm.py:{line}", err,
+               _time_ms(lambda: fn(X, order, sq), reps),
+               _time_ms(lambda: plain(X, order, sq), reps),
+               _bound(Mx * flops(n, order, sq), 2 * Mx * n * n * es, dtype),
                _time_ms(lambda: torch.linalg.matrix_exp(X), reps),
                f"{tol:.0e} relative",
                shape=f"CNOT {key} {list(X.shape)} {dtype}, order {order}, s={sq}",
@@ -486,23 +506,75 @@ def _qd_inputs(B, N, dz, m, dtype, rng, bad=None):
             t(rng.standard_normal((B, N, dz + m, 1))))
 
 
-def check_qd(B, N, dz, m, dtype, record, reps=20):
+# float32 K7 seeds beyond the first (the first is check_qd's own)
+QD_F32_SEEDS = (7, 1)
+
+
+def _qd_accuracy(B, N, dz, m, dtype, rng, label):
+    """K7 against its plain versions on healthy inputs from rng; returns
+    the inputs, the kernel's and the plain factors, the largest absolute
+    differences of the factors and the solve, and a note of the errors. float64: every result to 1e-9
+    relative of the plain version's. float32: two float32 implementations
+    round differently, so each result, the kernel's and the plain
+    version's, is held against the plain version in float64 on the same
+    inputs, and the kernel's relative error must be at most twice the
+    plain version's (or 1e-6): the factors, the solve from them, and the
+    solve alone (from the kernel's factors); the factor also to 1e-3
+    relative of the plain float32 version's."""
+    import torch
+    from piccolax_torch.solver import kkt
+
+    P, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng)
+    fk = kkt.qd_factor(P, C, R, Cn)
+    fp = kkt.qd_factor_plain(P, C, R, Cn)
+    xk = kkt.qd_solve(fk, C, Cn, rhs, dz)
+    xp = kkt.qd_solve_plain(fp, C, Cn, rhs, dz)
+    xo = kkt.qd_solve_plain(fk, C, Cn, rhs, dz)
+    for a, what in ((fk[0], "Pinv"), (fk[1], "Sinv"), (xk, "solve")):
+        _check(bool(torch.isfinite(a).all()), f"qd {what} {label} not finite")
+    err_f = max(_rel_err(fk[i], fp[i])[0] for i in (0, 1))
+    rel_f = max(_rel_err(fk[i], fp[i])[1] for i in (0, 1))
+    err_s, rel_s = _rel_err(xk, xp)
+    rel_o = _rel_err(xk, xo)[1]
+    if dtype == "float64":
+        for rel, what in ((rel_f, "factor"), (rel_s, "solve"),
+                          (rel_o, "solve on its factors")):
+            _check(rel < 1e-9, f"qd {what} {label} rel err {rel:.3e}")
+        return (P, C, R, Cn, rhs), fk, fp, err_f, err_s, \
+            f"{rel_s:.1e} relative, {rel_o:.1e} on the kernel's factors"
+    _check(rel_f < 1e-3, f"qd factor {label} rel err {rel_f:.3e} vs plain float32")
+    d = [x.double() for x in (P, C, R, Cn, rhs)]
+    f64 = kkt.qd_factor_plain(*d[:4])
+    x64 = kkt.qd_solve_plain(f64, d[1], d[3], d[4], dz)
+    x64o = kkt.qd_solve_plain(tuple(f.double() for f in fk), d[1], d[3], d[4], dz)
+    pairs = {"factor": (max(_rel_err(fk[i], f64[i])[1] for i in (0, 1)),
+                        max(_rel_err(fp[i], f64[i])[1] for i in (0, 1))),
+             "solve": (_rel_err(xk, x64)[1], _rel_err(xp, x64)[1]),
+             "solve on its factors": (_rel_err(xk, x64o)[1], _rel_err(xo, x64o)[1])}
+    for what, (k, pl) in pairs.items():
+        _check(k <= max(2 * pl, 1e-6), f"qd {what} {label}: rel err vs float64 "
+               f"{k:.3e}, over twice the plain float32 version's {pl:.3e}")
+    vs64 = ", ".join(f"{w} {k:.2e} (plain {pl:.2e})" for w, (k, pl) in pairs.items())
+    print(f"qd {label} vs float64: {vs64}; vs plain float32: factor {rel_f:.2e}, "
+          f"solve {rel_s:.2e}, solve on its factors {rel_o:.2e}", flush=True)
+    return (P, C, R, Cn, rhs), fk, fp, err_f, err_s, vs64
+
+
+def check_qd(B, N, dz, m, dtype, record, reps=20, variant=None):
     """Phase 3, K7: the qd factor and solve against their plain versions
-    at the shapes of a path; problem 3 has an indefinite P block at knot
-    N // 2 + 1, which must give NaN from that knot on in that problem only
-    (the same [B, N] mask as the plain version) and leave the others
-    finite. Timed on the inputs without the indefinite block, and in
-    float64 also on its first problem alone (the single quickstart's
-    B = 1, where a launch is the recursion's latency)."""
+    at the shapes of a path (_qd_accuracy; float32 on three seeds); problem
+    min(3, B - 1) has an indefinite P block at knot min(N // 2 + 1, N - 1),
+    which must give NaN from that knot on in that problem only (the same
+    [B, N] mask as the plain version) and leave the others finite. Timed
+    on the first seed's inputs without the indefinite block."""
     import torch
     from piccolax_torch.solver import kkt
 
     f64 = dtype == "float64"
     es = 8 if f64 else 4
-    tol = 1e-9 if f64 else 1e-3
     rng = np.random.default_rng(21 if f64 else 22)
-    kb = N // 2 + 1
-    P, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng, bad=(3, kb))
+    pb, kb = min(3, B - 1), min(N // 2 + 1, N - 1)
+    P, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng, bad=(pb, kb))
     fk = kkt.qd_factor(P, C, R, Cn)
     fp = kkt.qd_factor_plain(P, C, R, Cn)
     for a, b_, what in ((fk[0], fp[0], "Pinv"), (fk[1], fp[1], "Sinv")):
@@ -510,31 +582,25 @@ def check_qd(B, N, dz, m, dtype, record, reps=20):
         _check(torch.equal(nan_k, torch.isnan(b_).any(-1).any(-1)),
                f"qd_factor {what} ({dtype}): NaN mask differs from the plain version")
         want = torch.zeros_like(nan_k)
-        want[3, kb:] = True
+        want[pb, kb:] = True
         _check(torch.equal(nan_k, want), f"qd_factor {what} ({dtype}): NaN not "
-               f"exactly in problem 3 from knot {kb} on")
+               f"exactly in problem {pb} from knot {kb} on")
     xk = kkt.qd_solve(fk, C, Cn, rhs, dz)
     xp = kkt.qd_solve_plain(fp, C, Cn, rhs, dz)
     nan_s = torch.isnan(xk).flatten(1).any(1)
     _check(torch.equal(nan_s, torch.isnan(xp).flatten(1).any(1)),
            f"qd_solve ({dtype}): NaN mask differs from the plain version")
-    _check(nan_s.sum().item() == 1 and bool(nan_s[3]),
-           f"qd_solve ({dtype}): NaN outside problem 3")
+    _check(nan_s.sum().item() == 1 and bool(nan_s[pb]),
+           f"qd_solve ({dtype}): NaN outside problem {pb}")
     _check(bool(torch.isfinite(xk[nan_s.logical_not()]).all()),
            f"qd_solve ({dtype}): non-finite values in healthy problems")
 
-    P, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng)
-    fk = kkt.qd_factor(P, C, R, Cn)
-    fp = kkt.qd_factor_plain(P, C, R, Cn)
-    err_f = 0.0
-    for a, b_, what in ((fk[0], fp[0], "Pinv"), (fk[1], fp[1], "Sinv")):
-        _check(bool(torch.isfinite(a).all()), f"qd_factor {what} ({dtype}) not finite")
-        e, rel = _rel_err(a, b_)
-        _check(rel < tol, f"qd_factor {what} ({dtype}) rel err {rel:.3e}")
-        err_f = max(err_f, e)
-    xk = kkt.qd_solve(fk, C, Cn, rhs, dz)
-    err_s, rel = _rel_err(xk, kkt.qd_solve_plain(fp, C, Cn, rhs, dz))
-    _check(rel < tol, f"qd_solve ({dtype}) rel err {rel:.3e}")
+    label = f"[{B},{N},{dz},{dz}] m={m} {dtype}"
+    (P, C, R, Cn, rhs), fk, fp, err_f, err_s, how = _qd_accuracy(
+        B, N, dz, m, dtype, rng, f"{label} seed 22" if not f64 else label)
+    for seed in () if f64 else QD_F32_SEEDS:
+        _qd_accuracy(B, N, dz, m, dtype, np.random.default_rng(seed),
+                     f"{label} seed {seed}")
     f_flops = B * N * (2 * m * m * dz + 4 * dz * dz * m + 2 * m * m * dz
                        + (8 * dz ** 3 + 8 * m ** 3) // 3 + 2 * m * m)
     f_bytes = es * B * (2 * N * dz * dz + N * m * dz + N * m + (N - 1) * m * dz
@@ -542,30 +608,83 @@ def check_qd(B, N, dz, m, dtype, record, reps=20):
     s_flops = B * N * (6 * dz * dz + 10 * m * dz + 4 * m * m)
     s_bytes = es * B * (N * dz * dz + N * m * m + N * m * dz + (N - 1) * m * dz
                         + 2 * N * (dz + m))
-    shape = f"B={B}, N={N}, dz={dz}, m={m} {dtype}"
-    note = f"{tol:.0e} relative; NaN mask of one indefinite block equal"
-    b1 = ({}, {})
-    if f64:
-        P1, C1, R1, Cn1, rhs1 = (x[:1] for x in (P, C, R, Cn, rhs))
-        f1 = kkt.qd_factor(P1, C1, R1, Cn1)
-        b1 = ({"ms_b1": _time_ms(lambda: kkt.qd_factor(P1, C1, R1, Cn1), reps)},
-              {"ms_b1": _time_ms(lambda: kkt.qd_solve(f1, C1, Cn1, rhs1, dz), reps)})
-        print(f"qd B=1 {dtype}: factor kernel_ms={b1[0]['ms_b1']:.4f}, solve "
-              f"kernel_ms={b1[1]['ms_b1']:.4f}", flush=True)
+    tol = "1e-9 relative" if f64 else \
+        "float32: error vs plain float64 <= 2x plain float32's (seeds 22, 7, 1)"
+    note = f"{tol}; NaN mask of one indefinite block equal"
     record("qd_factor", "piccolax_torch/csrc/qd.cu", "piccolax/solver/kkt.py:194",
            err_f, _time_ms(lambda: kkt.qd_factor(P, C, R, Cn), reps),
            _time_ms(lambda: kkt.qd_factor_plain(P, C, R, Cn), reps),
-           _bound(f_flops, f_bytes, dtype), None, note, shape=shape, extra=b1[0])
+           _bound(f_flops, f_bytes, dtype), None, note,
+           shape=f"B={B}, N={N}, dz={dz}, m={m} {dtype}", variant=variant)
     record("qd_solve", "piccolax_torch/csrc/qd.cu", "piccolax/solver/kkt.py:252",
            err_s, _time_ms(lambda: kkt.qd_solve(fk, C, Cn, rhs, dz), reps),
            _time_ms(lambda: kkt.qd_solve_plain(fp, C, Cn, rhs, dz), reps),
-           _bound(s_flops, s_bytes, dtype), None, note,
-           shape=f"rhs [{B},{N},{dz + m},1] {dtype}", extra=b1[1])
+           _bound(s_flops, s_bytes, dtype), None, f"{note}; {how}",
+           shape=f"rhs [{B},{N},{dz + m},1] {dtype}", variant=variant)
+
+
+# (dz, m) of the width sweep: every pivot count of K7's Cholesky inverse
+# (the width rounded up to 4 to 32, to 8 past it) in dz and in m, each
+# register class (16, 32, 48, 64), and m above dz
+QD_SWEEP = [(3, 2), (7, 5), (10, 9), (16, 13), (19, 17), (24, 21), (27, 25), (31, 30),
+            (36, 33), (47, 41), (20, 36), (53, 50), (61, 57)]
+
+
+def check_qd_widths(reps=5):
+    """Phase 3, K7 at widths off the paths: [4, 20] problems and knots at
+    each (dz, m) of QD_SWEEP (float64 up to its cap of 48), held as
+    _qd_accuracy holds them; prints each factor's and solve's time."""
+    from piccolax_torch.solver import kkt
+
+    rng = np.random.default_rng(24)
+    for dtype in ("float32", "float64"):
+        for dz, m in QD_SWEEP:
+            if dtype == "float64" and max(dz, m) > 48:
+                continue
+            label = f"[4,20,{dz},{dz}] m={m} {dtype}"
+            (P, C, R, Cn, rhs), fk, _, err_f, err_s, _ = _qd_accuracy(
+                4, 20, dz, m, dtype, rng, label)
+            print(f"qd width sweep {label}: factor max_err={err_f:.3e} kernel_ms="
+                  f"{_time_ms(lambda: kkt.qd_factor(P, C, R, Cn), reps):.4f}, solve "
+                  f"max_err={err_s:.3e} kernel_ms="
+                  f"{_time_ms(lambda: kkt.qd_solve(fk, C, Cn, rhs, dz), reps):.4f}",
+                  flush=True)
+
+
+def check_caps():
+    """Phase 3: K7 and K8 on the card take exactly their stated widths
+    (K7 64 in float32 and 48 in float64, as its library reports; K8 64)
+    and raise ValueError past them, with no fallback."""
+    import torch
+    from piccolax_torch import _kernels
+    from piccolax_torch.solver import kkt
+
+    caps = [_kernels.load("qd").px_qd_max_width(f64) for f64 in (0, 1)]
+    _check(caps == [64, 48], f"qd caps {caps}, stated 64 (float32) and 48 (float64)")
+    rng = np.random.default_rng(23)
+    refused = []
+    for dtype, w in (("float32", 65), ("float64", 49)):
+        P, C, R, Cn, rhs = _qd_inputs(1, 3, w, w, dtype, rng)
+        for what, fn in (("qd_factor", lambda: kkt.qd_factor(P, C, R, Cn)),
+                         ("qd_solve", lambda: kkt.qd_solve((P, P), C, Cn, rhs, w))):
+            try:
+                fn()
+            except ValueError:
+                refused.append(f"{what} {w} {dtype}")
+                continue
+            raise RuntimeError(f"{what} took width {w} in {dtype}")
+    try:
+        kkt.tri_lower_inv(torch.eye(65, device="cuda").expand(2, 65, 65).contiguous())
+        raise RuntimeError("tri_lower_inv took width 65")
+    except ValueError:
+        refused.append("tri_lower_inv 65")
+    print(f"caps: K7 {caps[0]} (float32), {caps[1]} (float64), K8 {kkt._MAX_M}; "
+          f"refused: {', '.join(refused)}", flush=True)
 
 
 def check_tri_lower_inv(record, reps=20):
     """Phase 3, K8: the lower-triangular inverse (on no solve path) against
-    its plain version at [25600, 16, 16] and [25600, 32, 32], float64 and
+    its plain version at [25600, m, m], m = 32, 16, 44 and 64, float64 and
     float32, on Cholesky factors of SPD matrices; relative to
     max |L^{-1}|, since substitution and doubling round differently. The
     [25600, 32, 32] float64 row is the kernel's record. Operations from
@@ -578,7 +697,7 @@ def check_tri_lower_inv(record, reps=20):
     rng = np.random.default_rng(31)
     tol = {"float64": 1e-12, "float32": 1e-5}
     main, sub = None, {}
-    for m in (32, 16):
+    for m in (32, 16, 44, 64):
         X = rng.standard_normal((25600, m, m))
         L0 = np.linalg.cholesky(X @ np.swapaxes(X, -1, -2) / m + np.eye(m))
         for real in ("float64", "float32"):
@@ -1027,13 +1146,18 @@ KNOT_KERNELS = ["chol_inv_factor", "psd_clamp", "knot_factor", "knot_solve",
                 "expm_taylor_fixed"]
 OFF_PATH = ["qd_factor", "qd_solve", "expm_pade_fixed", "tri_lower_inv",
             "knot_tridiag_solve"]
+# the CNOT on "qd" (phase 12): K7 instead of K1 and K3 (and no K9)
+C3_QD_KERNELS = ["psd_clamp", "qd_factor", "qd_solve", "expm_taylor_fixed"]
+C3_QD_FORBIDDEN = ["chol_inv_factor", "condensed_factor", "condensed_solve",
+                   "knot_factor", "knot_solve", "expm_pade_fixed", "tri_lower_inv",
+                   "knot_tridiag_solve"]
 
 
-def config3():
-    """Phase 10: config 3, the CNOT (N = 200, T = 50), through the port's
-    entry points at B = 16 in float32 on "cr", pulse columns of Z0
-    perturbed by 0.002 N(0, 1) (seed 0) as bench.py does; gated by float64
-    DOP853 F > 0.999 on all 16."""
+def config3(kkt_backend="cr"):
+    """Phase 10 (and 12 with kkt_backend "qd"): config 3, the CNOT
+    (N = 200, T = 50), through the port's entry points at B = 16 in
+    float32, pulse columns of Z0 perturbed by 0.002 N(0, 1) (seed 0) as
+    bench.py does; gated by float64 DOP853 F > 0.999 on all 16."""
     import torch
     import piccolax_torch as pt
     from piccolax_torch import _kernels
@@ -1047,35 +1171,40 @@ def config3():
     Zb[:, :, u_sl] += 0.002 * rng.standard_normal(
         (C3_B, C3_N, u_sl.stop - u_sl.start)).astype(np.float32)
     Zb = torch.as_tensor(Zb, device="cuda")
-    opts = _c3_options()
-    pt.solve_nlp(nlp, params, Zb, device="cuda", options=_c3_options(max_iter=2))
+    opts = _c3_options(kkt_backend=kkt_backend)
+    pt.solve_nlp(nlp, params, Zb, device="cuda",
+                 options=_c3_options(max_iter=2, kkt_backend=kkt_backend))
     _kernels.reset_launch_counts()
     _sync()
     t0 = time.perf_counter()
     st = pt.solve_nlp(nlp, params, Zb, options=opts, device="cuda")
     _sync()
     seconds = time.perf_counter() - t0
-    launches = _read_launches("config-3", C3_KERNELS,
-                              ["knot_factor", "knot_solve", *OFF_PATH])
+    label = "config-3" if kkt_backend == "cr" else f"config-3-{kkt_backend}"
+    if kkt_backend == "cr":
+        launches = _read_launches(label, C3_KERNELS,
+                                  ["knot_factor", "knot_solve", *OFF_PATH])
+    else:
+        launches = _read_launches(label, C3_QD_KERNELS, C3_QD_FORBIDDEN)
     its = st.it.cpu().numpy()
     iters = int(its.max())
-    print(f"config-3: B={C3_B} N={C3_N} f32, kkt_backend cr, hess_mode abs, "
+    print(f"{label}: B={C3_B} N={C3_N} f32, kkt_backend {kkt_backend}, hess_mode abs, "
           f"{iters} iterations (max; mean {its.mean():.2f}, min {its.min()}), "
           f"{seconds:.3f} s, {C3_B / seconds:.3f} solves/s; per IPM iteration: "
           + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
           flush=True)
     Z = st.Z.double().cpu().numpy()
     _check(np.all(np.isfinite(Z)) and Z.shape == (C3_B, C3_N, layout.z_dim),
-           f"config-3 solution not finite or of shape {Z.shape}")
+           f"{label} solution not finite or of shape {Z.shape}")
     t1 = time.perf_counter()
     Fs, dF = _cnot_fidelities(prob, Z[:, :, u_sl], Z, u_sl, U_sl)
     n_conv = int(st.converged.sum().item())
-    print(f"config-3 quality: converged={n_conv}/{C3_B}, f64-DOP853 mean_F="
+    print(f"{label} quality: converged={n_conv}/{C3_B}, f64-DOP853 mean_F="
           f"{Fs.mean():.6f}, min_F={Fs.min():.6f}, F>0.999 on "
           f"{int((Fs > 0.999).sum())}/{C3_B}, mean|dF|={dF.mean():.2e}, "
           f"max|dF|={dF.max():.2e}, dop853 {time.perf_counter() - t1:.1f} s",
           flush=True)
-    _check(bool(np.all(Fs > 0.999)), f"config-3: F > 0.999 on "
+    _check(bool(np.all(Fs > 0.999)), f"{label}: F > 0.999 on "
            f"{int((Fs > 0.999).sum())}/{C3_B} only")
     return launches, (nlp, params, Zb, opts)
 
@@ -1151,10 +1280,57 @@ def cnot_knot():
           + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
           flush=True)
     _check(Fs[0] > 0.999, f"{label}: F {Fs[0]} <= 0.999")
-    return launches, (nlp, params, Z0)
+    return launches, dict(nlp=nlp, params=params, Z0=Z0, cr40=ref, prob=prob,
+                          layout=layout)
 
 
-def profile(name, fn):
+def cnot_qd(run_k):
+    """Phase 12, second part: the CNOT at B = 1 in float64 on kkt_backend
+    "qd": max_iter 40 from phase 11's Z0, reported beside phase 11's "cr"
+    run of the same length (it, kkt_err, the largest Z difference), then
+    one solve to its end (max_iter 250, tol 1e-6), gated by DOP853
+    F > 0.999."""
+    import piccolax_torch as pt
+    from piccolax_torch import _kernels
+
+    nlp, params, Z0, ref, prob = (run_k[k] for k in ("nlp", "params", "Z0", "cr40",
+                                                       "prob"))
+    u_sl, U_sl = run_k["layout"].slices["u"], run_k["layout"].slices["U"]
+    launches = None
+    for max_iter in (40, 250):
+        opts = pt.IPMOptions(max_iter=max_iter, tol=1e-6, constr_viol_tol=1e-6,
+                             kkt_backend="qd")
+        _kernels.reset_launch_counts()
+        _sync()
+        t0 = time.perf_counter()
+        st = pt.solve_nlp(nlp, params, Z0, options=opts, device="cuda")
+        _sync()
+        seconds = time.perf_counter() - t0
+        label = f"cnot-qd-{max_iter}" if max_iter == 40 else "cnot-qd"
+        launches = _read_launches(label, C3_QD_KERNELS, C3_QD_FORBIDDEN)
+        iters = int(st.it)
+        if max_iter == 40:
+            dZ = (st.Z - ref.Z).abs().max().item()
+            print(f"{label}: B=1 N={C3_N} f64, {iters} iterations, {seconds:.3f} s "
+                  f"({1e3 * seconds / iters:.1f} ms per iteration), kkt_err "
+                  f"{float(st.kkt_err):.6e}; cr (phase 11): {int(ref.it)} iterations, "
+                  f"kkt_err {float(ref.kkt_err):.6e}; max|Z_qd - Z_cr| {dZ:.3e}",
+                  flush=True)
+            continue
+        Z = st.Z[None].double().cpu().numpy()
+        _check(np.all(np.isfinite(Z)), f"{label}: solution not finite")
+        Fs, dF = _cnot_fidelities(prob, Z[:, :, u_sl], Z, u_sl, U_sl)
+        print(f"{label}: B=1 N={C3_N} f64, {iters} iterations, converged="
+              f"{bool(st.converged)}, stalled={bool(st.stalled)}, {seconds:.3f} s "
+              f"({1e3 * seconds / iters:.1f} ms per iteration), f64-DOP853 "
+              f"F={Fs[0]:.9f}, |dF|={dF[0]:.3e}; per IPM iteration: "
+              + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
+              flush=True)
+        _check(Fs[0] > 0.999, f"{label}: F {Fs[0]} <= 0.999")
+    return launches
+
+
+def profile(name, fn, iters=None):
     """Run fn under torch.profiler: wall, device busy time and idle share of
     the profiled run, and device time by kernel."""
     import torch
@@ -1178,9 +1354,11 @@ def profile(name, fn):
             cur_e = max(cur_e, e_)
     if cur_e is not None:
         busy += cur_e - cur_s
+    per = "" if not iters else \
+        f", {1e3 * busy / 1e6 / iters:.2f} ms of device time per iteration"
     print(f"profile {name}: wall {wall:.3f} s (profiled), device busy "
           f"{busy / 1e6:.3f} s, idle share {1 - busy / 1e6 / wall:.3f} of the "
-          f"profiled run, {len(events)} device events", flush=True)
+          f"profiled run, {len(events)} device events{per}", flush=True)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=20)
     print(table, flush=True)
 
@@ -1192,6 +1370,10 @@ def main():
     ap.add_argument("--profile-cnot", action="store_true",
                     help="also profile 20 iterations of config 3 and of the "
                          "CNOT on cr and on knot")
+    ap.add_argument("--profile-qd", action="store_true",
+                    help="also profile 20 iterations of every qd path: the Pade/qd "
+                         "quickstart at B = 1 and 256, config 1 and config 3 on "
+                         "qd, and the CNOT on qd")
     args = ap.parse_args()
 
     import torch
@@ -1232,6 +1414,15 @@ def main():
     check_expm_pade_fixed(record, reps=5)
     check_qd(256, 50, 14, 12, "float32", record)
     check_qd(QS_B, QS_N, 15, 13, "float64", record, reps=5)
+    check_qd(1, QS_N, 15, 13, "float64", record, variant="float64_quickstart_b1")
+    check_qd(C3_B, C3_N, 44, 40, "float32", record, reps=5, variant="config3_float32")
+    check_qd(1, C3_N, 44, 40, "float64", record, reps=5, variant="config3_float64")
+    check_qd(2, 20, 64, 64, "float32", record, reps=5, variant="cap_float32")
+    check_qd(2, 20, 48, 48, "float64", record, reps=5, variant="cap_float64")
+    check_qd(4, 1, 15, 13, "float64", record, reps=5, variant="N1_float64")
+    check_qd(4, 2, 14, 12, "float32", record, reps=5, variant="N2_float32")
+    check_qd_widths()
+    check_caps()
     check_tri_lower_inv(record, reps=5)
     check_kernels(C3_B, C3_N, 44, 40, "float32", record, reps=5, clamp=(20, 3e-3),
                   k4=False, variant="config3_float32")
@@ -1239,8 +1430,10 @@ def main():
                   variant="config3_float64")
     # phase 10: B = 16, f32, no Newton candidate (2 directions x 8 steps);
     # phase 11: B = 1, f64, with it (3 x 8)
-    check_k4_cnot(C3_B, 2 * 8, "float32", record)
-    check_k4_cnot(1, 3 * 8, "float64", record)
+    check_expm_cnot(C3_B, 2 * 8, "float32", record)
+    check_expm_cnot(1, 3 * 8, "float64", record)
+    check_expm_cnot(C3_B, 2 * 8, "float32", record, pade_order=7)
+    check_expm_cnot(1, 3 * 8, "float64", record, pade_order=7)
     check_knot(1, C3_N, 44, 40, "float64", record)
     check_knot(C3_B, C3_N, 44, 40, "float32", record)
     check_knot_tridiag(record)
@@ -1252,9 +1445,11 @@ def main():
     paths["quickstart_pade7_qd"] = quickstart(pade_order=7, kkt_backend="qd")
     paths["quickstart_pade7_qd_b256"], run_pq = quickstart_batched(
         gate=0.9, pade_order=7, kkt_backend="qd")
-    paths["config1_qd"], _ = config1(256, 50, 10.0, kkt_backend="qd")
+    paths["config1_qd"], run1q = config1(256, 50, 10.0, kkt_backend="qd")
     paths["config3"], run3 = config3()
     paths[f"cnot_knot_p{max(KNOT_PARTS)}"], run_k = cnot_knot()
+    paths["config3_qd"], run3q = config3(kkt_backend="qd")
+    paths["cnot_qd"] = cnot_qd(run_k)
     if args.profile:
         profile("config 1 solve (B=256, f32)",
                 lambda: pt.solve_nlp(*run1[:3], options=run1[3], device="cuda"))
@@ -1275,12 +1470,29 @@ def main():
         profile("config 3, 20 iterations (B=16, f32, cr)",
                 lambda: pt.solve_nlp(nlp3, params3, Zb3, device="cuda",
                                      options=_c3_options(max_iter=20)))
-        nlpk, paramsk, Z0k = run_k
+        nlpk, paramsk, Z0k = run_k["nlp"], run_k["params"], run_k["Z0"]
         for backend, P in (("cr", None), ("knot", max(KNOT_PARTS))):
             profile(f"CNOT, 20 iterations (B=1, f64, {backend}, P={P})",
                     lambda: pt.solve_nlp(nlpk, paramsk, Z0k, mesh=P, device="cuda",
                                          options=pt.IPMOptions(
                                              max_iter=20, kkt_backend=backend)))
+    if args.profile_qd:
+        def window(run, n=20):
+            return lambda: pt.solve_nlp(*run[:3], device="cuda", options=pt.IPMOptions(
+                **{**run[3].__dict__, "max_iter": n}))
+        _, _, qcp7 = _quickstart_problem(pade_order=7)
+        profile("Pade/qd quickstart, 20 iterations (B=1, f64)",
+                lambda: qcp7.solve(verbose=False, device="cuda", options=pt.IPMOptions(
+                    **{**_qs_options("qd").__dict__, "max_iter": 20})), 20)
+        profile("batched Pade/qd quickstart, 20 iterations (B=256, f64)",
+                window(run_pq), 20)
+        profile("config 1 on qd, 20 iterations (B=256, f32)", window(run1q), 20)
+        profile("config 3 on qd, 20 iterations (B=16, f32)", window(run3q), 20)
+        profile("CNOT on qd, 20 iterations (B=1, f64)",
+                lambda: pt.solve_nlp(run_k["nlp"], run_k["params"], run_k["Z0"],
+                                     device="cuda", options=pt.IPMOptions(
+                                         max_iter=20, tol=1e-6, constr_viol_tol=1e-6,
+                                         kkt_backend="qd")), 20)
     for name, r in rows.items():
         r["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "qd": {
         "px_qd_factor": ([_C, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _P], _C),
         "px_qd_solve": ([_C, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P], _C),
+        "px_qd_max_width": ([_C], _C),
     },
     "tri_inv": {"px_tri_lower_inv": ([_C, _P, _P, _L, _C, _P], _C)},
     "knot": {

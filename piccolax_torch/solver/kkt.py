@@ -45,10 +45,9 @@ __all__ = [
     "tri_lower_inv", "tri_lower_inv_plain",
 ]
 
-# Block limits of the kernels: K1, K2, K3 (and K9) run K1's warp routine,
-# a lane owning two rows; K7 and K8 give one lane one row.
+# Block limit of K1, K2, K3, K8 and K9: a lane owns two rows (or columns).
+# K7's, 64 in float32 and 48 in float64, is its library's px_qd_max_width.
 _MAX_M = 64
-_MAX_M_LANE = 32
 
 
 def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:
@@ -445,25 +444,26 @@ def qd_solve_plain(factors, C, Cnext, rhs, dz):
 def qd_factor(P, C, Rdiag, Cnext):
     """K7 factor of the quasidefinite block-tridiagonal KKT for a batch of
     problems: P [B, N, dz, dz], C [B, N, m, dz], Rdiag [B, N, m],
-    Cnext [B, N-1, m, dz] (m, dz <= 32). Returns (Pinv, Sinv).
+    Cnext [B, N-1, m, dz] (m, dz <= 64 in float32, 48 in float64).
+    Returns (Pinv, Sinv).
 
     Replaces piccolax/solver/kkt.py:194 qd_factor. The recursion is N
-    knots deep and no batch hides that depth; at B = 256 the bound is
-    the bytes it moves. One thread block per problem walks the knots in a
-    loop, the two Cholesky inverses of a knot on one warp (K1's routine)
-    and its Gram products on all four, every intermediate in shared
-    memory; see csrc/qd.cu. NaN from the knot of a non-PD P_eff on, in
-    that problem only.
+    knots deep and no batch hides that depth: a launch is the latency of
+    N knot steps. One thread block per problem: four warps run the chain
+    (Gram products between named barriers, two Cholesky inverses with rows
+    in registers), four load the next knot's blocks and form Pinv and Sinv
+    off the chain; see csrc/qd.cu. NaN from the knot of a non-PD P_eff
+    on, in that problem only.
     """
     if not _cuda_or_cpu(P, "qd_factor"):
         return qd_factor_plain(P, C, Rdiag, Cnext)
-    B, N, m, dz = _check_kkt_shapes(C, Cnext, "qd_factor", 1, _MAX_M_LANE,
-                                    _MAX_M_LANE)
+    lib = _kernels.load("qd")
+    cap = lib.px_qd_max_width(_kernels.is_f64(C))
+    B, N, m, dz = _check_kkt_shapes(C, Cnext, "qd_factor", 1, cap, cap)
     _kernels.require(P, "qd_factor P", (B, N, dz, dz), like=C)
     _kernels.require(Rdiag, "qd_factor Rdiag", (B, N, m), like=C)
     Pinv = torch.empty_like(P)
     Sinv = torch.empty(B, N, m, m, dtype=P.dtype, device=P.device)
-    lib = _kernels.load("qd")
     rc = lib.px_qd_factor(_kernels.is_f64(P), P.data_ptr(), C.data_ptr(),
                           Rdiag.data_ptr(), Cnext.data_ptr(), Pinv.data_ptr(),
                           Sinv.data_ptr(), B, N, m, dz, _kernels.stream_handle(P))
@@ -477,15 +477,18 @@ def qd_solve(factors, C, Cnext, rhs, dz):
     ordered (z, lam) per knot; returns the same shape.
 
     Replaces piccolax/solver/kkt.py:252 qd_solve (with _qd_block_apply
-    :243). Bound on the H100: the bytes of the factors, read twice; the
-    two sweeps are N knots deep. One warp per problem and column walks
-    both sweeps, lane i owning row i; see csrc/qd.cu.
+    :243). The two sweeps are 2N - 1 dependent knot steps: a launch is
+    their latency. One thread block per problem and up to four columns, a
+    warp per column (lane l owning rows l and l + 32), while helper warps
+    stage the next step's blocks in shared memory; see csrc/qd.cu. Widths
+    as qd_factor.
     """
     if not _cuda_or_cpu(rhs, "qd_solve"):
         return qd_solve_plain(factors, C, Cnext, rhs, dz)
     Pinv, Sinv = factors
-    B, N, m, dz_c = _check_kkt_shapes(C, Cnext, "qd_solve", 1, _MAX_M_LANE,
-                                      _MAX_M_LANE)
+    lib = _kernels.load("qd")
+    cap = lib.px_qd_max_width(_kernels.is_f64(C))
+    B, N, m, dz_c = _check_kkt_shapes(C, Cnext, "qd_solve", 1, cap, cap)
     if dz_c != dz:
         raise ValueError("qd_solve: dz does not match C")
     r = rhs.shape[-1]
@@ -493,7 +496,6 @@ def qd_solve(factors, C, Cnext, rhs, dz):
     _kernels.require(Sinv, "qd_solve Sinv", (B, N, m, m), like=C)
     _kernels.require(rhs, "qd_solve rhs", (B, N, dz + m, r), like=C)
     out = torch.empty_like(rhs)
-    lib = _kernels.load("qd")
     rc = lib.px_qd_solve(_kernels.is_f64(rhs), Pinv.data_ptr(), Sinv.data_ptr(),
                          C.data_ptr(), Cnext.data_ptr(), rhs.data_ptr(),
                          out.data_ptr(), B, N, m, dz, r,
@@ -526,20 +528,21 @@ def tri_lower_inv_plain(L):
 
 def tri_lower_inv(L):
     """K8: inverse of every lower-triangular [m, m] block of L [..., m, m]
-    (m <= 32); a zero on the diagonal gives inf / NaN, as in piccolax.
+    (m <= 64); a zero on the diagonal gives inf / NaN, as in piccolax.
 
     Replaces piccolax/solver/kkt.py:58 tri_lower_inv. Bound on the H100:
     bytes (one read of L, one write of its inverse). One warp per block,
-    lane j substituting column j (the second half of K1's routine), four
-    warps per thread block; see csrc/tri_inv.cu. The substitution rounds
-    otherwise than the doubling: they agree relative to ||L^{-1}||.
+    lane l substituting columns l and l + 32 (the second half of K1's
+    routine), up to four warps per thread block; see csrc/tri_inv.cu. The
+    substitution rounds otherwise than the doubling: they agree relative
+    to ||L^{-1}||.
     """
     if not _cuda_or_cpu(L, "tri_lower_inv"):
         return tri_lower_inv_plain(L)
     m = L.shape[-1]
     _kernels.require(L, "tri_lower_inv")
-    if L.dim() < 2 or L.shape[-2] != m or m > _MAX_M_LANE:
-        raise ValueError(f"tri_lower_inv: square blocks up to {_MAX_M_LANE} "
+    if L.dim() < 2 or L.shape[-2] != m or m > _MAX_M:
+        raise ValueError(f"tri_lower_inv: square blocks up to {_MAX_M} "
                          f"expected, got {tuple(L.shape)}")
     out = torch.empty_like(L)
     lib = _kernels.load("tri_inv")

@@ -1,14 +1,15 @@
 """Config 3 (CNOT on two coupled transmons) in the port against piccolax, on
 the CPU in float64: the copied operator builders, the build at a reduced
 size (N = 12, T = 3; dz = 44, m = 40, K4's plain path on 8 x 8 residual
-generators and 24 x 24 augmentations), and the knot-partitioned IPM
+generators and 24 x 24 augmentations), the knot-partitioned IPM
 (kkt_backend="knot", mesh=4) against piccolax's "knot" solve on a 4-device
-virtual mesh.
+virtual mesh, and the sequential quasidefinite IPM (kkt_backend="qd")
+against piccolax's "qd" solve.
 
 piccolax's side runs in two worker threads started by the module fixture:
-its build, then its "knot" IPM (one jit of the while_loop) beside the jit
-of its derivatives. XLA compiles without the GIL, so the two compiles
-overlap each other and the port's side in the main thread."""
+its build, then its "knot" and "qd" IPMs (one jit of the while_loop each)
+beside the jit of its derivatives. XLA compiles without the GIL, so the
+compiles overlap each other and the port's side in the main thread."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -36,6 +37,7 @@ N, T, M, DZ = 12, 3.0, 40, 44
 KNOT_ITERS = 10
 KNOT_OPTS = dict(max_iter=KNOT_ITERS, tol=1e-6, constr_viol_tol=1e-6,
                  kkt_backend="knot")
+QD_OPTS = {**KNOT_OPTS, "kkt_backend": "qd"}
 
 
 def _jax_build():
@@ -49,6 +51,13 @@ def _jax_knot_solve(jb):
     opts = jipm.IPMOptions(**KNOT_OPTS)
     st = jax.jit(lambda Z, g: jipm.solve_nlp(jnlp, jparams, Z, g, opts, mesh=mesh))(
         jZ0, jg0)
+    return int(st.it), np.asarray(st.Z), float(st.kkt_err)
+
+
+def _jax_qd_solve(jb):
+    _, jnlp, jparams, jZ0, jg0, _ = jb.result()
+    opts = jipm.IPMOptions(**QD_OPTS)
+    st = jax.jit(lambda Z, g: jipm.solve_nlp(jnlp, jparams, Z, g, opts))(jZ0, jg0)
     return int(st.it), np.asarray(st.Z), float(st.kkt_err)
 
 
@@ -73,11 +82,13 @@ def built():
     jb = pool.submit(_jax_build)
     knot = pool.submit(_jax_knot_solve, jb)
     derivs = pool.submit(_jax_derivatives, jb)
+    qd = pool.submit(_jax_qd_solve, jb)
     prob = pt.cnot_problem(N=N, T=T, device="cpu")
     nlp, params, Z0, _, lay = prob.build(device="cpu")
     jprob, jnlp, _, jZ0, _, jlay = jb.result()
     yield dict(jprob=jprob, jnlp=jnlp, jZ0=np.asarray(jZ0), jlay=jlay, prob=prob,
-               nlp=nlp, params=params, Z0=Z0, lay=lay, knot=knot, derivs=derivs)
+               nlp=nlp, params=params, Z0=Z0, lay=lay, knot=knot, derivs=derivs,
+               qd=qd)
     pool.shutdown()
 
 
@@ -136,6 +147,19 @@ def test_knot_ipm_matches_jax_knot_solve(built):
     st = pt.solve_nlp(p["nlp"], p["params"], p["Z0"], device="cpu", mesh=4,
                       options=pt.IPMOptions(**KNOT_OPTS))
     it, Zj, kkt = p["knot"].result()
+    assert int(st.it) == it == KNOT_ITERS
+    np.testing.assert_allclose(st.Z.numpy(), Zj, rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(float(st.kkt_err), kkt, rtol=1e-4)
+
+
+def test_qd_ipm_matches_jax_qd_solve(built):
+    """The port's solve_nlp(kkt_backend="qd") against piccolax's "qd"
+    solve, KNOT_ITERS iterations from the same Z0: the same it, Z to rtol
+    1e-7 / atol 1e-9 and kkt_err to rtol 1e-4, as the knot IPM is held."""
+    p = built
+    st = pt.solve_nlp(p["nlp"], p["params"], p["Z0"], device="cpu",
+                      options=pt.IPMOptions(**QD_OPTS))
+    it, Zj, kkt = p["qd"].result()
     assert int(st.it) == it == KNOT_ITERS
     np.testing.assert_allclose(st.Z.numpy(), Zj, rtol=1e-7, atol=1e-9)
     np.testing.assert_allclose(float(st.kkt_err), kkt, rtol=1e-4)

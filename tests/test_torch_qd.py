@@ -86,11 +86,11 @@ def _dense_kkt(P, C, Rdiag, Cnext):
 
 
 @pytest.mark.parametrize("N,m,dz", [(1, 3, 5), (2, 3, 5), (7, 3, 5), (50, 3, 5),
-                                    (11, 13, 15)])
+                                    (11, 13, 15), (12, 40, 44)])
 def test_qd_factor_and_solve_match_jax(N, m, dz):
-    """tests/test_kkt.py's shapes and the quickstart's block sizes
-    (dz = 15, m = 13), B = 3, two right-hand sides: the factors slot by
-    slot and the solution to 1e-10 relative."""
+    """tests/test_kkt.py's shapes, the quickstart's block sizes (dz = 15,
+    m = 13) and the CNOT's (dz = 44, m = 40), B = 3, two right-hand sides:
+    the factors slot by slot and the solution to 1e-10 relative."""
     args = _kkt_problems(N, m, dz, seed=N + m)
     (jP, jS), jx = _jax_qd(*args, dz)
     (pP, pS), px_ = _port_qd(*args, dz)
@@ -162,7 +162,7 @@ def test_qd_nan_mask_matches_jax():
 # -- K8: lower-triangular inverse -----------------------------------------------
 
 
-@pytest.mark.parametrize("m", [1, 2, 5, 16, 32])
+@pytest.mark.parametrize("m", [1, 2, 5, 16, 32, 44, 64])
 def test_tri_lower_inv_matches_jax(m):
     rng = np.random.default_rng(m)
     L = np.tril(rng.standard_normal((4, m, m)))
