@@ -8,7 +8,8 @@ built or loaded when the module is imported.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else (one for each call
-of a K9 wrapper, whose C entry launches two to five kernels in a row).
+of the K3 factor and the K9 wrappers, whose C entries launch a sequence of
+kernels: a factor one or two a level, a K9 solve three).
 """
 
 from __future__ import annotations

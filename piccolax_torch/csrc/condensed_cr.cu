@@ -3,17 +3,31 @@
 //
 // Replaces piccolax/solver/kkt.py: condensed_factor / condensed_solve over
 // cr_factor / cr_solve. On the TPU each CR level is a batched matmul over
-// all knots; here one thread block owns one problem and runs the whole
-// level loop itself (log2(Np) levels, Np = N padded to a power of two), so
-// a factor is one launch and a solve is one launch instead of dozens of
-// small ones. The blocks are 12 x 12 on config 1 and 40 x 40 on config 3
-// (CNOT): the work is a few MFLOP per problem on config 1 and the bound is
-// the bytes of P, C and the factor, far below what the block-serial loop
-// takes. Reduced blocks and right-hand sides live in a device-memory
-// workspace private to the block (L1/L2 resident). The per-knot arithmetic
-// (condense_knots, dual_rhs_knots, primal_knots), the level loop and the
-// Cholesky-inverse of every reduced diagonal block (K1's warp routine) are
-// common.cuh's, which K9 shares.
+// all knots. The blocks are 12 x 12 on config 1 and 40 x 40 on config 3
+// (CNOT): a factor is ~0.33 GFLOP a problem at the CNOT's blocks, 0.08 ms
+// of the card at B = 16, so what bounds it is the dependent chain of
+// log2(Np) levels, each a Cholesky inverse and a few products of m x m
+// blocks.
+//
+// Factor (common.cuh): one launch forms the condensed blocks D_k, U_k, a
+// row group a knot; then each CR level is two launches, the odd rows'
+// elimination (chol_inv and the product Xi [Ul^T | Ur]) and the even rows'
+// update (two products), a row group a row of every problem, and one root
+// launch: 2 log2(Np) + 2 launches in one call. A level of one problem so
+// spreads over as many SMs as it has rows, and a batch fills the card; a
+// row group is a thread block, or a warp for blocks up to 16 wide (four
+// rows a block, products on whole operands, more blocks an SM). Measured
+// on the earlier design, one thread block a problem that ran every level
+// (scripts/cr_phase_timing.py), the products and the condensation took
+// 82-92% of a factor at the CNOT's blocks and the Cholesky inverses 8-9%:
+// eight warps a problem read row-strided operands from a device-memory
+// workspace. Every product here stages its operands in shared memory with
+// coalesced loads (block_gemm), each entry summed in the earlier order
+// (the wide float32 products in float64).
+//
+// Solve: one thread block a problem runs the dual right-hand side, the
+// whole CR solve and the primal recovery (cr_solve_block, float32 sums in
+// float64); one launch.
 //
 // Factor layout cr [B, 3, Np, m, m]: level l (n = Np >> l rows, n/2 odd
 // rows eliminated) stores Xi, Ul, Ur of its odd rows at slots
@@ -22,44 +36,6 @@
 #include "common.cuh"
 
 namespace {
-
-// The condensation of all N knots (D padded with identity blocks, U with
-// zeros), then the CR levels.
-template <typename T>
-__global__ void cr_factor_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
-                                 const T* __restrict__ R_g, const T* __restrict__ Cn_g,
-                                 T* __restrict__ cr_g, T* __restrict__ ws_g,
-                                 int N, int Np, int m, int dz, long long ws_stride) {
-  PX_SMEM(T);
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid / 32;
-  const int mm = m * m, md = m * dz, dd = dz * dz;
-  const T* Xi = Xi_g + (long long)b * N * dd;
-  const T* C = C_g + (long long)b * N * md;
-  const T* Rd = R_g + (long long)b * N * m;
-  const T* Cn = Cn_g + (long long)b * (N - 1) * md;
-  T* cr = cr_g + (long long)b * 3 * Np * mm;
-  T* ws = ws_g + (long long)b * ws_stride;
-  T* Y = ws;                       // [N, m, dz]
-  T* Yn = Y + N * md;              // [N, m, dz] (last unused)
-  T* D0 = Yn + N * md;             // [Np, m, m]
-  T* D1 = D0 + Np * mm;
-  T* U0 = D1 + Np * mm;
-  T* U1 = U0 + Np * mm;
-  T* Gl = U1 + Np * mm;            // [Np/2, m, m]
-  T* Gr = Gl + (Np / 2) * mm;
-  T* S = smem + warp * px::chol_scratch_elems(m);
-
-  px::condense_knots<T>(Xi, C, Rd, Cn, N, 0, N, m, dz, Y, Yn, D0, U0);
-  for (int idx = N * mm + tid; idx < Np * mm; idx += nt) {
-    const int e = idx % mm;
-    D0[idx] = (e / m == e % m) ? T(1) : T(0);
-    U0[idx] = T(0);
-  }
-  __syncthreads();
-
-  px::cr_factor_block<T>(D0, D1, U0, U1, Gl, Gr, cr, Np, m, S);
-}
 
 // out = K^{-1} rhs for the condensed KKT: dual rhs, CR reduce, root,
 // back-substitution, primal recovery. rhs/out [N, dz + m, r].
@@ -98,47 +74,67 @@ __global__ void condensed_solve_kernel(const T* __restrict__ Xi_g, const T* __re
 
 constexpr int kThreads = 256;
 
-// The factor runs K1's warp routine on one diagonal block per warp, each
-// warp with its own scratch: up to eight warps, fewer where m's scratch
-// would pass the 227 KB a block may hold (m = 40 in float64 fits eight,
-// m = 64 three).
+// Workspace of the factor a problem: D and U [N, m, m], Y [N, 3, m, dz],
+// then launch_cr_factor's.
+long long factor_ws(int N, int Np, int m, int dz) {
+  return 2LL * N * m * m + 3LL * N * m * dz + px::cr_factor_ws(1, Np, m);
+}
+
 template <typename T>
 int launch_factor(const void* Xi, const void* C, const void* Rdiag, const void* Cnext,
                   void* cr, void* ws, int B, int N, int Np, int m, int dz,
-                  long long wss, cudaStream_t st) {
-  const size_t per_warp = sizeof(T) * px::chol_scratch_elems(m);
-  const int warps = px::warps_that_fit(per_warp, kThreads / 32);
-  const size_t smem = per_warp * warps;
-  cudaFuncSetAttribute(cr_factor_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  cr_factor_kernel<T><<<B, warps * 32, smem, st>>>(
-      (const T*)Xi, (const T*)C, (const T*)Rdiag, (const T*)Cnext, (T*)cr, (T*)ws,
-      N, Np, m, dz, wss);
-  return (int)cudaGetLastError();
+                  cudaStream_t st PX_CR_PARAM) {
+  T* D = static_cast<T*>(ws);
+  T* U = D + (long long)B * N * m * m;
+  T* Y = U + (long long)B * N * m * m;
+  T* wcr = Y + 3LL * B * N * m * dz;
+  int rc = px::launch_condense<T>(static_cast<const T*>(Xi), static_cast<const T*>(C),
+                                  static_cast<const T*>(Rdiag), static_cast<const T*>(Cnext),
+                                  D, U, Y, B, N, m, dz, st PX_CR_ARG(stamps));
+  if (rc) return rc;
+  const px::Rows<T> rows{px::Knots<T>{D, U, (long long)N * m * m, (long long)N * m * m, N},
+                         1, N, 0, N, N - 1};
+  return px::launch_cr_factor<T>(rows, B, Np, m, static_cast<T*>(cr), 3LL * Np * m * m, wcr,
+                                 st PX_CR_ARG(stamps));
 }
 
 }  // namespace
 
+// Workspace of the factor, in elements of T per problem.
 extern "C" long long px_cr_factor_ws(int N, int Np, int m, int dz) {
-  return 2LL * N * m * dz + px::cr_factor_ws_elems(Np, m);
+  return factor_ws(N, Np, m, dz);
 }
 
 extern "C" long long px_condensed_solve_ws(int N, int Np, int m, int dz, int r) {
   return 2LL * N * dz * r + px::cr_solve_ws_elems(Np, m, r);
 }
 
-// m <= 64 (K1's warp routine)
+// m <= 64 (chol_inv). Under PX_CR_TIMING the stamps (8 a launch) of the
+// first thread block of each launch follow the stream; px_cr_timing_kinds
+// then names the launches.
 extern "C" int px_cr_factor(int is_f64, const void* Xi, const void* C,
                             const void* Rdiag, const void* Cnext, void* cr,
                             void* ws, int B, int N, int Np, int m, int dz,
-                            void* stream) {
-  if (m < 1 || m > px::kMaxCholM) return (int)cudaErrorInvalidValue;
+                            void* stream PX_CR_PARAM) {
+  if (m < 1 || m > px::kMaxCholM || N < 1 || Np < N) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long wss = px_cr_factor_ws(N, Np, m, dz);
-  return is_f64 ? launch_factor<double>(Xi, C, Rdiag, Cnext, cr, ws, B, N, Np, m, dz, wss, st)
-                : launch_factor<float>(Xi, C, Rdiag, Cnext, cr, ws, B, N, Np, m, dz, wss, st);
+#ifdef PX_CR_TIMING
+  px::g_nst = 0;
+#endif
+  return is_f64 ? launch_factor<double>(Xi, C, Rdiag, Cnext, cr, ws, B, N, Np, m, dz, st PX_CR_ARG(stamps))
+                : launch_factor<float>(Xi, C, Rdiag, Cnext, cr, ws, B, N, Np, m, dz, st PX_CR_ARG(stamps));
 }
+
+#ifdef PX_CR_TIMING
+// The kinds of the last timed call's launches (kind + 256 level: 0 the
+// condensation, 1 an elimination, 2 an update, 3 the root) into out;
+// returns their number.
+extern "C" int px_cr_timing_kinds(int* out) {
+  for (int q = 0; q < px::g_nst; ++q) out[q] = px::g_kinds[q];
+  return px::g_nst;
+}
+#endif
 
 extern "C" int px_condensed_solve(int is_f64, const void* Xi, const void* C,
                                   const void* Cnext, const void* cr,

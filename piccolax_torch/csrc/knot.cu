@@ -12,16 +12,17 @@
 // neighbour's first knot (the halo) and, in the solve, the previous
 // device's last multiplier.
 //
-// On one H100 the mesh axis becomes P partitions, each a thread block: the
-// all_gather is a write and a read of the interface rows in device memory,
-// a ppermute a read across the partition edge, and the point is to spread
-// one problem over P SMs where K3 runs it on one. One thread block per
-// (partition, problem), and a launch where JAX has a collective:
-//   factor (a) grid P x B: Y = C Xi^T and Yn = Cn Xi_next^T over the
-//              partition and its halo knot, D and U, the interior CR
-//              factor, the SPIKE columns, the interface rows;
-//          (b) grid B: the interface system's CR factor (once per problem,
-//              where JAX repeats it on every device);
+// On one H100 the mesh axis becomes P partitions: the all_gather is a
+// write and a read of the interface rows in device memory, a ppermute a
+// read across the partition edge.
+//   factor: the condensed blocks D_k, U_k, a row group a knot
+//           (common.cuh's condense); the interiors' CR factors, all B P at
+//           once (launch_cr_factor); the SPIKE columns, a CR solve of the
+//           2m columns of each interior, launched level by level with a
+//           row group a row (reduce, root, back-substitution); the
+//           interface rows, a row group a partition; the interface
+//           systems' CR factors (once per problem, where JAX repeats it on
+//           every device);
 //   solve  (c1) grid P x B: t = Pinv r_z over the partition and its halo,
 //              the dual rhs b, the interior solve, the interface rhs;
 //          (c2) grid B: the interface solve;
@@ -30,14 +31,21 @@
 // The standalone block-tridiagonal solve (given diag and upper) runs the
 // same kernels without the condensation and the primal part.
 //
-// The interior and interface systems use K3's level loop and K1's warp
-// Cholesky inverse (common.cuh). Every intermediate lives in a device-
-// memory workspace private to its block (L1/L2 resident). At config 3
-// (m = 40, dz = 44, N = 200, P = 8) a factor is ~0.7 GFLOP per problem,
-// most of it the SPIKE columns' 2m right-hand sides, ~0.01 ms at the
-// card's float64 peak; what a launch takes is latency, the level loop's
-// dependent steps over that workspace, which P partitions shorten and
-// spread over P SMs.
+// At config 3 (m = 40, dz = 44, N = 200, P = 8) a factor is ~0.7 GFLOP
+// per problem, most of it the SPIKE columns' 2m right-hand sides, ~0.01 ms
+// at the card's float64 peak; what a factor takes is its chain of
+// dependent steps. Measured on the earlier design, a thread block a
+// partition that ran all of it (scripts/cr_phase_timing.py), the SPIKE
+// solve took 43-49% of a partition's time, the condensation 21-31% and
+// the level loop's products 17-19%, the interface factor on one block
+// after it: every step here is a launch of a row group per row (or knot,
+// or partition) of every system, its products staged in shared memory
+// (block_gemm), each entry summed in the earlier order (float32 ones in
+// float64). A factor is 5 log2 Npk + 2 log2 Npi + 6 launches in one call
+// (39 at N = 200, P = 8).
+//
+// The solve runs each partition (c1, c3) and each interface (c2) in one
+// thread block through cr_solve_block.
 //
 // Factor layout (shared with the plain version, parallel/sharded_kkt.py):
 // fT [B, P, 3, Npk, m, m] the interior CR factors (Npk = k padded to a power
@@ -62,16 +70,21 @@ struct Dims {
   __host__ __device__ Dims(int B_, int N_, int P_, int m_, int dz_)
       : B(B_), N(N_), P(P_), L(N_ / P_), k(N_ / P_ - 2),
         Npk(pow2_at_least(N_ / P_ - 2)), Npi(pow2_at_least(2 * P_)), m(m_), dz(dz_) {}
-  // Factor workspace: per partition Y [L+1, m, dz], Yn [L, m, dz],
-  // D, U [L, m, m], the interior CR factor's and the SPIKE solve's; then
-  // per problem the interface CR factor's, whose first blocks receive the
-  // gathered interface rows.
-  __host__ __device__ long long fpart() const {
-    return (2LL * L + 1) * m * dz + 2LL * L * m * m + px::cr_factor_ws_elems(Npk, m) +
-           px::cr_solve_ws_elems(Npk, m, 2 * m);
+  // Factor workspace: the condensed blocks D, U [B, N, m, m] and Y
+  // [B, N, 3, m, dz] (none for the standalone system, dz = 0); the
+  // interiors' CR factor's; the SPIKE solve's X0, X1 and rodd
+  // [B P, Npk, m, 2m] and tl [B P, Npk / 2, m, 2m]; the interface rows
+  // Dif, Uif [B, 2P, m, m]; the interface CR factor's.
+  __host__ __device__ long long S() const { return (long long)B * P; }
+  __host__ __device__ long long cond() const {
+    return dz > 0 ? 2LL * B * N * m * m + 3LL * B * N * m * dz : 0;
   }
-  __host__ __device__ long long fif() const { return px::cr_factor_ws_elems(Npi, m); }
-  __host__ __device__ long long fws() const { return (long long)B * (P * fpart() + fif()); }
+  __host__ __device__ long long spike_rows() const { return S() * Npk * m * 2 * m; }
+  __host__ __device__ long long fws() const {
+    return cond() + px::cr_factor_ws(S(), Npk, m) + 3 * spike_rows() +
+           S() * (Npk > 1 ? Npk / 2 : 1) * m * 2 * m + 4LL * B * P * m * m +
+           px::cr_factor_ws(B, Npi, m);
+  }
   // Solve workspace: per partition t, q [L+1, dz, r], b [L, m, r], the
   // interior CR solve's, the interior solution [k, m, r], lambda [L, m, r]
   // and w [L, dz, r]; then per problem the interface CR solve's, whose
@@ -89,121 +102,218 @@ struct Dims {
   }
 };
 
-// (a) partition factor. kCond: D and U from the knot factors Xi, C, R and
-// Cn (the condensed KKT); otherwise read from diag [B, N, m, m] and
-// upper [B, N-1, m, m].
-template <typename T, bool kCond>
-__global__ void knot_factor_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
-                                   const T* __restrict__ R_g, const T* __restrict__ Cn_g,
-                                   const T* __restrict__ diag_g, const T* __restrict__ up_g,
-                                   T* __restrict__ fT_g, T* __restrict__ spike_g,
-                                   T* __restrict__ Ub_g, T* __restrict__ ws_g, Dims g) {
-  PX_SMEM(T);
-  const int p = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
-  const int N = g.N, P = g.P, L = g.L, k = g.k, Npk = g.Npk, m = g.m, dz = g.dz;
-  const int mm = m * m, md = m * dz, dd = dz * dz, m2 = 2 * m;
-  const int j0 = p * L;
-  T* S = smem + (tid / 32) * px::chol_scratch_elems(m);
-  T* ws = ws_g + ((long long)b * P + p) * g.fpart();
-  T* Y = ws;                            // [L+1, m, dz]
-  T* Yn = Y + (long long)(L + 1) * md;  // [L, m, dz]
-  T* D = Yn + (long long)L * md;        // [L, m, m]
-  T* U = D + (long long)L * mm;         // [L, m, m]; U[L-1] couples to p + 1
-  T* F = U + (long long)L * mm;         // interior CR factor workspace
-  T* D0 = F;
-  T* D1 = D0 + (long long)Npk * mm;
-  T* U0 = D1 + (long long)Npk * mm;
-  T* U1 = U0 + (long long)Npk * mm;
-  T* Gl = U1 + (long long)Npk * mm;
-  T* Gr = Gl + (long long)(Npk / 2) * mm;
-  T* A0 = F + px::cr_factor_ws_elems(Npk, m);  // SPIKE solve workspace
-  T* A1 = A0 + (long long)Npk * m * m2;
-  T* rodd = A1 + (long long)Npk * m * m2;
-  T* tl = rodd + (long long)Npk * m * m2;
-  T* q2 = tl + (long long)(Npk / 2) * m * m2;
-  T* fT = fT_g + ((long long)b * P + p) * 3 * Npk * mm;
-  T* spike = spike_g + ((long long)b * P + p) * k * m * m2;
-  T* Ub = Ub_g + ((long long)b * P + p) * 2 * mm;
-  // the gathered interface system of problem b: D rows and U rows
-  T* Dif = ws_g + (long long)g.B * P * g.fpart() + (long long)b * g.fif();
-  T* Uif = Dif + 2LL * g.Npi * mm;
-
-  if (kCond) {
-    px::condense_knots<T>(Xi_g + (long long)b * N * dd, C_g + (long long)b * N * md,
-                          R_g + (long long)b * N * m, Cn_g + (long long)b * (N - 1) * md,
-                          N, j0, L, m, dz, Y, Yn, D, U);
-  } else {
-    const T* dg = diag_g + (long long)b * N * mm;
-    const T* up = up_g + (long long)b * (N - 1) * mm;
-    for (int idx = tid; idx < L * mm; idx += nt) {
-      const int j = j0 + idx / mm;
-      D[idx] = dg[(long long)j0 * mm + idx];
-      U[idx] = (j < N - 1) ? up[(long long)j0 * mm + idx] : T(0);
-    }
-  }
-  __syncthreads();
-
-  // interior T = rows 1 .. L-2, padded to Npk with identity / zero blocks
-  for (int idx = tid; idx < Npk * mm; idx += nt) {
-    const int kk = idx / mm, e = idx % mm, a = e / m, c = e % m;
-    D0[idx] = kk < k ? D[(kk + 1) * mm + e] : (a == c ? T(1) : T(0));
-    U0[idx] = kk < k - 1 ? U[(kk + 1) * mm + e] : T(0);
-  }
-  __syncthreads();
-  px::cr_factor_block<T>(D0, D1, U0, U1, Gl, Gr, fT, Npk, m, S);
-
-  // SPIKE columns [e_1 U_f^T | e_k U_l], U_f = U[0], U_l = U[L-2]
-  const T* Uf = U;
-  const T* Ul = U + (L - 2) * mm;
-  for (int idx = tid; idx < Npk * m * m2; idx += nt) {
-    const int kk = idx / (m * m2), a = (idx / m2) % m, s = idx % m2;
+// SPIKE right-hand sides of interior s = b P + p, a thread block a row:
+// E = [e_1 U_f^T | e_k U_l] [Npk, m, 2m] (U_f = U_{j0}, U_l = U_{j0+L-2}).
+template <typename T>
+__global__ void spike_init_kernel(px::Knots<T> kn, T* __restrict__ E, Dims g) {
+  const int s = blockIdx.x / g.Npk, i = blockIdx.x % g.Npk;
+  const int m = g.m, mm = m * m, r = 2 * m, b = s / g.P, j0 = (s % g.P) * g.L;
+  const T* Uf = kn.u(b, j0, mm);
+  const T* Ul = kn.u(b, j0 + g.L - 2, mm);
+  T* e = E + ((long long)s * g.Npk + i) * m * r;
+  for (int idx = threadIdx.x; idx < m * r; idx += blockDim.x) {
+    const int a = idx / r, c = idx % r;
     T v = 0;
-    if (kk == 0 && s < m) v = Uf[s * m + a];
-    if (kk == k - 1 && s >= m) v = Ul[a * m + s - m];
-    A0[idx] = v;
-  }
-  __syncthreads();
-  const T* x = px::cr_solve_block<T>(fT, A0, A1, rodd, tl, q2, Npk, m, m2);
-  for (int idx = tid; idx < k * m * m2; idx += nt) spike[idx] = x[idx];
-  // reduced interface rows of this partition: rows 2p (f) and 2p + 1 (l)
-  const T* x_last = x + (long long)(k - 1) * m * m2;
-  for (int idx = tid; idx < mm; idx += nt) {
-    const int a = idx / m, c = idx % m;
-    T s1 = 0, s2 = 0, s3 = 0;
-    for (int e = 0; e < m; ++e) {
-      s1 += Uf[a * m + e] * x[e * m2 + c];           // U_f (T^-1 U_f^T)_1
-      s2 += Ul[e * m + a] * x_last[e * m2 + m + c];  // U_l^T (T^-1 U_l)_k
-      s3 += Uf[a * m + e] * x[e * m2 + m + c];       // U_f (T^-1 U_l)_1
-    }
-    Dif[(2LL * p) * mm + idx] = D[idx] - s1;
-    Dif[(2LL * p + 1) * mm + idx] = D[(L - 1) * mm + idx] - s2;
-    Uif[(2LL * p) * mm + idx] = -s3;
-    Uif[(2LL * p + 1) * mm + idx] = U[(L - 1) * mm + idx];
-    Ub[idx] = Uf[idx];
-    Ub[mm + idx] = Ul[idx];
+    if (i == 0 && c < m) v = Uf[c * m + a];
+    if (i == g.k - 1 && c >= m) v = Ul[a * m + c - m];
+    e[idx] = v;
   }
 }
 
-// (b) the interface system's CR factor: rows past 2P padded.
+// The SPIKE solve's kernels: each a group (common.cuh) per row of a level
+// of every interior (row s half + j), their m x m by m x 2m products
+// staged by block_gemm, each entry summed as cr_solve_block sums it. cr
+// holds the interiors' factors (fT), rows of a right-hand side are
+// [m, r = 2m] and a buffer holds Npk rows an interior.
 template <typename T>
-__global__ void knot_if_factor_kernel(T* __restrict__ fif_g, T* __restrict__ ws_g, Dims g) {
-  PX_SMEM(T);
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int m = g.m, mm = m * m, Npi = g.Npi, P = g.P;
-  T* S = smem + (tid / 32) * px::chol_scratch_elems(m);
-  T* D0 = ws_g + (long long)g.B * P * g.fpart() + (long long)b * g.fif();
-  T* D1 = D0 + (long long)Npi * mm;
-  T* U0 = D1 + (long long)Npi * mm;
-  T* U1 = U0 + (long long)Npi * mm;
-  T* Gl = U1 + (long long)Npi * mm;
-  T* Gr = Gl + (long long)(Npi / 2) * mm;
-  for (int idx = 2 * P * mm + tid; idx < Npi * mm; idx += nt) {
-    const int e = idx % mm;
-    D0[idx] = (e / m == e % m) ? T(1) : T(0);
-    U0[idx] = T(0);
+struct Spike {
+  const T* cr;
+  int S, Npk, m;
+  __device__ const T* plane(int s, int pl, int slot) const {
+    return cr + (((long long)s * 3 + pl) * Npk + slot) * m * m;
   }
-  __syncthreads();
-  px::cr_factor_block<T>(D0, D1, U0, U1, Gl, Gr, fif_g + (long long)b * 3 * Npi * mm, Npi, m, S);
+  __device__ long long row(int s, int i) const { return ((long long)s * Npk + i) * m * 2 * m; }
+};
+
+// Shared memory of a SPIKE kernel's group: `rows` right-hand-side rows
+// [m, 2m] and the product tiles, in elements of T.
+__host__ __device__ inline int spike_smem(int m, int rows, int nt) { return rows * 2 * m * m + px::gemm_smem(m, 2 * m, m, nt); }
+
+// q(a, c) = sum_e M(a, e) b(e, c) (trans: M(e, a)), M m x m, b m x r
+template <typename T, class Epi>
+__device__ void spike_prod(const T* M, bool trans, const T* bm, int m, int r, const Epi& epi,
+                           T* tiles, const px::Group& g) {
+  if (trans)
+    px::block_gemm<T, false, true>(
+        m, r, m, [&](int a, int e) { return M[e * m + a]; },
+        [&](int e, int c) { return bm[e * r + c]; }, epi, tiles, g);
+  else
+    px::block_gemm<T, true, true>(
+        m, r, m, [&](int a, int e) { return M[a * m + e]; },
+        [&](int e, int c) { return bm[e * r + c]; }, epi, tiles, g);
+}
+
+// The group's row of a launch of n rows (false: none, the group returns).
+#define PX_SPIKE_ROW(n, smem_rows)                                                    \
+  const px::Group g(px::rows_per_block(sp.m));                                      \
+  const long long row = (long long)blockIdx.x * px::rows_per_block(sp.m) + g.index; \
+  if (row >= (n)) return;                                                           \
+  const int m = sp.m, r = 2 * m;                                                    \
+  T* gsm = smem + g.index * spike_smem(m, smem_rows, g.nt)
+
+// Reduction, odd row j of the level at slot off: rodd = b_{2j+1},
+// tl_j = Xi^T (Xi b_{2j+1}).
+template <typename T>
+__global__ void spike_odd_kernel(Spike<T> sp, const T* __restrict__ cur, T* __restrict__ rodd,
+                                 T* __restrict__ tl, int off, int half PX_CR_PARAM) {
+  PX_SMEM(T);
+  PX_SPIKE_ROW((long long)sp.S * half, 1);
+  const int s = (int)(row / half), j = (int)(row % half);
+  T* q = gsm;                                // [m, r]
+  T* tiles = q + m * r;
+  const T* Xl = sp.plane(s, 0, off + j);
+  const T* bo = cur + sp.row(s, 2 * j + 1);
+  T* ro = rodd + sp.row(s, off + j);
+  T* t = tl + row * m * r;
+  PX_CR_BEGIN();
+  for (int idx = g.tid; idx < m * r; idx += g.nt) ro[idx] = bo[idx];
+  spike_prod<T>(Xl, false, bo, m, r, [&](int a, int c, T v) { q[a * r + c] = v; }, tiles, g);
+  g.sync();
+  PX_CR_KSTAMP(3);
+  spike_prod<T>(Xl, true, q, m, r, [&](int a, int c, T v) { t[a * r + c] = v; }, tiles, g);
+  PX_CR_KSTAMP(4);
+  PX_CR_END();
+}
+
+// Reduction, even row j: nxt_j = b_{2j} - Ur_{j-1}^T tl_{j-1} - Ul_j tl_j.
+template <typename T>
+__global__ void spike_even_kernel(Spike<T> sp, const T* __restrict__ cur,
+                                  const T* __restrict__ tl, T* __restrict__ nxt, int off,
+                                  int half PX_CR_PARAM) {
+  PX_SMEM(T);
+  PX_SPIKE_ROW((long long)sp.S * half, 1);
+  const int s = (int)(row / half), j = (int)(row % half);
+  T* w = gsm;                                // b_{2j} - Ur^T tl_{j-1}
+  T* tiles = w + m * r;
+  const T* t = tl + row * m * r;
+  T* o = nxt + sp.row(s, j);
+  PX_CR_BEGIN();
+  px::stage_block(w, r, cur + sp.row(s, 2 * j), m, r, g);
+  g.sync();
+  if (j > 0)
+    spike_prod<T>(sp.plane(s, 2, off + j - 1), true, t - m * r, m, r,
+                  [&](int a, int c, T v) { w[a * r + c] -= v; }, tiles, g);
+  PX_CR_KSTAMP(3);
+  spike_prod<T>(sp.plane(s, 1, off + j), false, t, m, r,
+                [&](int a, int c, T v) { o[a * r + c] = w[a * r + c] - v; }, tiles, g);
+  PX_CR_KSTAMP(4);
+  PX_CR_END();
+}
+
+// The root: x_0 = XR^T (XR b_0) into out + s osys.
+template <typename T>
+__global__ void spike_root_kernel(Spike<T> sp, const T* __restrict__ cur, T* __restrict__ out,
+                                  long long osys PX_CR_PARAM) {
+  PX_SMEM(T);
+  PX_SPIKE_ROW((long long)sp.S, 1);
+  const int s = (int)row;
+  T* q = gsm;
+  T* tiles = q + m * r;
+  const T* XR = sp.plane(s, 0, sp.Npk - 1);
+  T* o = out + s * osys;
+  PX_CR_BEGIN();
+  spike_prod<T>(XR, false, cur + sp.row(s, 0), m, r,
+                [&](int a, int c, T v) { q[a * r + c] = v; }, tiles, g);
+  g.sync();
+  PX_CR_KSTAMP(3);
+  spike_prod<T>(XR, true, q, m, r, [&](int a, int c, T v) { o[a * r + c] = v; }, tiles, g);
+  PX_CR_KSTAMP(4);
+  PX_CR_END();
+}
+
+// Back-substitution, odd row j of the level at slot lo from x (half rows):
+// t = rodd - Ul^T x_j - Ur x_{j+1}, y_{2j+1} = Xi^T (Xi t), y_{2j} = x_j;
+// y rows past nrows (the interior's k) are not written, y + s ysys.
+template <typename T>
+__global__ void spike_back_kernel(Spike<T> sp, const T* __restrict__ x,
+                                  const T* __restrict__ rodd, T* __restrict__ y, long long ysys,
+                                  int nrows, int lo, int half PX_CR_PARAM) {
+  PX_SMEM(T);
+  PX_SPIKE_ROW((long long)sp.S * half, 2);
+  const int s = (int)(row / half), j = (int)(row % half);
+  const int mr = m * r;
+  T* t = gsm;
+  T* q = t + mr;
+  T* tiles = q + mr;
+  const T* xj = x + sp.row(s, j);
+  const T* ro = rodd + sp.row(s, lo + j);
+  const T* Xl = sp.plane(s, 0, lo + j);
+  T* ys = y + s * ysys;
+  PX_CR_BEGIN();
+  spike_prod<T>(sp.plane(s, 1, lo + j), true, xj, m, r,
+                [&](int a, int c, T v) { t[a * r + c] = ro[a * r + c] - v; }, tiles, g);
+  if (j + 1 < half)
+    spike_prod<T>(sp.plane(s, 2, lo + j), false, xj + mr, m, r,
+                  [&](int a, int c, T v) { t[a * r + c] = t[a * r + c] - v; }, tiles, g);
+  g.sync();
+  PX_CR_KSTAMP(3);
+  spike_prod<T>(Xl, false, t, m, r, [&](int a, int c, T v) { q[a * r + c] = v; }, tiles, g);
+  g.sync();
+  if (2 * j + 1 < nrows)
+    spike_prod<T>(Xl, true, q, m, r,
+                  [&](int a, int c, T v) { ys[(2LL * j + 1) * mr + a * r + c] = v; }, tiles, g);
+  PX_CR_KSTAMP(4);
+  if (2 * j < nrows)
+    for (int idx = g.tid; idx < mr; idx += g.nt) ys[2LL * j * mr + idx] = xj[idx];
+  PX_CR_END();
+}
+
+// The interface rows of partition p of problem b (a group each): rows 2p
+// (f) and 2p + 1 (l) of Dif, Uif [B, 2P, m, m] from the SPIKE columns, and
+// Ub = (U_f, U_l).
+template <typename T>
+__global__ void iface_rows_kernel(px::Knots<T> kn, const T* __restrict__ spike,
+                                  T* __restrict__ Dif, T* __restrict__ Uif, T* __restrict__ Ub,
+                                  Dims dm PX_CR_PARAM) {
+  PX_SMEM(T);
+  const px::Group g(px::rows_per_block(dm.m));
+  const long long s = (long long)blockIdx.x * px::rows_per_block(dm.m) + g.index;
+  if (s >= dm.S()) return;
+  const int b = (int)(s / dm.P), p = (int)(s % dm.P), m = dm.m, mm = m * m, r = 2 * m;
+  T* sm = smem + g.index * px::gemm_smem(m, m, m, g.nt);
+  const long long j0 = (long long)p * dm.L;
+  const T* Uf = kn.u(b, j0, mm);
+  const T* Ul = kn.u(b, j0 + dm.L - 2, mm);
+  const T* Ux = kn.u(b, j0 + dm.L - 1, mm);    // to partition p + 1; none at the end
+  const T* Df = kn.d(b, j0, mm);
+  const T* Dl = kn.d(b, j0 + dm.L - 1, mm);
+  const T* x0 = spike + s * dm.k * m * r;
+  const T* xl = x0 + (long long)(dm.k - 1) * m * r;
+  T* df = Dif + ((long long)b * 2 * dm.P + 2 * p) * mm;
+  T* uf = Uif + ((long long)b * 2 * dm.P + 2 * p) * mm;
+  PX_CR_BEGIN();
+  // U_f (T^-1 U_f^T)_1, U_l^T (T^-1 U_l)_k, U_f (T^-1 U_l)_1
+  px::block_gemm<T, true, true>(
+      m, m, m, [&](int a, int e) { return Uf[a * m + e]; },
+      [&](int e, int c) { return x0[e * r + c]; },
+      [&](int a, int c, T v) { df[a * m + c] = Df[a * m + c] - v; }, sm, g);
+  px::block_gemm<T, false, true>(
+      m, m, m, [&](int a, int e) { return Ul[e * m + a]; },
+      [&](int e, int c) { return xl[e * r + m + c]; },
+      [&](int a, int c, T v) { df[mm + a * m + c] = Dl[a * m + c] - v; }, sm, g);
+  PX_CR_KSTAMP(3);
+  px::block_gemm<T, true, true>(
+      m, m, m, [&](int a, int e) { return Uf[a * m + e]; },
+      [&](int e, int c) { return x0[e * r + m + c]; },
+      [&](int a, int c, T v) { uf[a * m + c] = -v; }, sm, g);
+  PX_CR_KSTAMP(4);
+  T* ub = Ub + s * 2 * mm;
+  for (int idx = g.tid; idx < mm; idx += g.nt) {
+    uf[mm + idx] = Ux ? Ux[idx] : T(0);
+    ub[idx] = Uf[idx];
+    ub[mm + idx] = Ul[idx];
+  }
+  PX_CR_END();
 }
 
 // (c1) local rhs and interior solve. kCond: rhs [B, N, dz + m, r] of the
@@ -250,10 +360,10 @@ __global__ void knot_solve_local_kernel(const T* __restrict__ Xi_g, const T* __r
   const T* x_last = x + (long long)(k - 1) * mr;
   for (int idx = tid; idx < mr; idx += nt) {
     const int a = idx / r, s = idx % r;
-    T s1 = 0, s2 = 0;
+    px::acc_t<T> s1 = 0, s2 = 0;
     for (int e = 0; e < m; ++e) {
-      s1 += Uf[a * m + e] * x[e * r + s];
-      s2 += Ul[e * m + a] * x_last[e * r + s];
+      s1 += px::acc_t<T>(Uf[a * m + e]) * x[e * r + s];
+      s2 += px::acc_t<T>(Ul[e * m + a]) * x_last[e * r + s];
     }
     Aif[(2LL * p) * mr + idx] = bv[idx] - s1;
     Aif[(2LL * p + 1) * mr + idx] = bv[(L - 1) * mr + idx] - s2;
@@ -312,10 +422,10 @@ __global__ void knot_solve_back_kernel(const T* __restrict__ Xi_g, const T* __re
       v = x_l[a * r + s];
     } else {
       const T* sp = spike + (long long)(kk - 1) * m * m2 + a * m2;
-      T s1 = 0, s2 = 0;
+      px::acc_t<T> s1 = 0, s2 = 0;
       for (int e = 0; e < m; ++e) {
-        s1 += sp[e] * x_f[e * r + s];
-        s2 += sp[m + e] * x_l[e * r + s];
+        s1 += px::acc_t<T>(sp[e]) * x_f[e * r + s];
+        s2 += px::acc_t<T>(sp[m + e]) * x_l[e * r + s];
       }
       v = (rs[(kk - 1) * mr + a * r + s] - s1) - s2;
     }
@@ -330,26 +440,92 @@ __global__ void knot_solve_back_kernel(const T* __restrict__ Xi_g, const T* __re
                       lam, x_f - mr, j0, L, m, dz, r, w, q, out + (long long)j0 * mb * r);
 }
 
-// Launches (a) and (b): the chol_inv_warp kernels take up to eight warps,
-// as many as m's scratch lets fit in 227 KB.
+// The factor's launches. kCond: D and U condensed from the knot factors
+// Xi, C, R and Cn; otherwise read from diag [B, N, m, m] and upper
+// [B, N-1, m, m].
 template <typename T, bool kCond>
 int launch_factor(const void* Xi, const void* C, const void* R, const void* Cn,
                   const void* diag, const void* up, void* fT, void* spike, void* Ub,
-                  void* fif, void* ws, const Dims& g, cudaStream_t st) {
-  const size_t per_warp = sizeof(T) * px::chol_scratch_elems(g.m);
-  const int warps = px::warps_that_fit(per_warp, kThreads / 32);
-  const size_t smem = per_warp * warps;
-  cudaFuncSetAttribute(knot_factor_kernel<T, kCond>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  knot_factor_kernel<T, kCond><<<dim3(g.P, g.B), warps * 32, smem, st>>>(
-      (const T*)Xi, (const T*)C, (const T*)R, (const T*)Cn, (const T*)diag, (const T*)up,
-      (T*)fT, (T*)spike, (T*)Ub, (T*)ws, g);
-  int rc = (int)cudaGetLastError();
+                  void* fif, void* ws_, const Dims& g, cudaStream_t st PX_CR_PARAM) {
+  const int m = g.m, mm = m * m, r = 2 * m, S = (int)g.S();
+  T* ws = static_cast<T*>(ws_);
+  px::Knots<T> kn;
+  if (kCond) {
+    T* D = ws;
+    T* U = D + (long long)g.B * g.N * mm;
+    T* Y = U + (long long)g.B * g.N * mm;
+    int rc = px::launch_condense<T>((const T*)Xi, (const T*)C, (const T*)R, (const T*)Cn, D, U,
+                                    Y, g.B, g.N, m, g.dz, st PX_CR_ARG(stamps));
+    if (rc) return rc;
+    kn = px::Knots<T>{D, U, (long long)g.N * mm, (long long)g.N * mm, g.N};
+  } else {
+    kn = px::Knots<T>{(const T*)diag, (const T*)up, (long long)g.N * mm,
+                      (long long)(g.N - 1) * mm, g.N - 1};
+  }
+  T* wcr = ws + g.cond();
+  T* X0 = wcr + px::cr_factor_ws(S, g.Npk, m);
+  T* X1 = X0 + g.spike_rows();
+  T* rodd = X1 + g.spike_rows();
+  T* tl = rodd + g.spike_rows();
+  T* Dif = tl + g.S() * (g.Npk > 1 ? g.Npk / 2 : 1) * m * r;
+  T* Uif = Dif + 2LL * g.B * g.P * mm;
+  T* wif = Uif + 2LL * g.B * g.P * mm;
+  // the interiors: rows 1 .. L-2 of each partition
+  int rc = px::launch_cr_factor<T>(px::Rows<T>{kn, g.P, g.L, 1, g.k, g.k - 1}, S, g.Npk, m,
+                                   (T*)fT, 3LL * g.Npk * mm, wcr, st PX_CR_ARG(stamps));
   if (rc) return rc;
-  cudaFuncSetAttribute(knot_if_factor_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  knot_if_factor_kernel<T><<<g.B, warps * 32, smem, st>>>((T*)fif, (T*)ws, g);
-  return (int)cudaGetLastError();
+  // the SPIKE columns T^{-1} [e_1 U_f^T | e_k U_l]
+  const Spike<T> sp{(const T*)fT, S, g.Npk, m};
+  const int rows = px::rows_per_block(m), gt = px::kGemmThreads / rows;
+  const unsigned nt = px::kGemmThreads;
+  auto bytes = [&](int rhs_rows) { return sizeof(T) * rows * spike_smem(m, rhs_rows, gt); };
+  if (int e = px::smem_for(spike_odd_kernel<T>, bytes(1))) return e;
+  if (int e = px::smem_for(spike_even_kernel<T>, bytes(1))) return e;
+  if (int e = px::smem_for(spike_root_kernel<T>, bytes(1))) return e;
+  if (int e = px::smem_for(spike_back_kernel<T>, bytes(2))) return e;
+  spike_init_kernel<T><<<(unsigned)(g.S() * g.Npk), nt, 0, st>>>(kn, X0, g);
+  T *cur = X0, *nxt = X1;
+  int off = 0, lvl = 0;
+  for (int n = g.Npk; n > 1; n /= 2, ++lvl) {
+    const int half = n / 2;
+    const unsigned blocks = px::row_blocks(g.S() * half, m);
+    spike_odd_kernel<T><<<blocks, nt, bytes(1), st>>>(sp, cur, rodd, tl, off, half
+                                                      PX_CR_NEXT(5, lvl));
+    spike_even_kernel<T><<<blocks, nt, bytes(1), st>>>(sp, cur, tl, nxt, off, half
+                                                       PX_CR_NEXT(6, lvl));
+    T* tmp = cur; cur = nxt; nxt = tmp;
+    off += half;
+  }
+  const long long spk = (long long)g.k * m * r;     // spike's rows an interior
+  const unsigned sblocks = px::row_blocks(g.S(), m);
+  if (g.Npk == 1) {
+    spike_root_kernel<T><<<sblocks, nt, bytes(1), st>>>(sp, cur, (T*)spike, spk
+                                                        PX_CR_NEXT(7, lvl));
+  } else {
+    spike_root_kernel<T><<<sblocks, nt, bytes(1), st>>>(sp, cur, nxt, (long long)g.Npk * m * r
+                                                        PX_CR_NEXT(7, lvl));
+    T *x = nxt, *y = cur;
+    for (int half = 1; half < g.Npk; half *= 2) {
+      const bool last = 2 * half == g.Npk;
+      spike_back_kernel<T><<<px::row_blocks(g.S() * half, m), nt, bytes(2), st>>>(
+          sp, x, rodd, last ? (T*)spike : y, last ? spk : (long long)g.Npk * m * r,
+          last ? g.k : g.Npk, g.Npk - 2 * half, half PX_CR_NEXT(8, --lvl));
+      T* tmp = x; x = y; y = tmp;
+    }
+  }
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const size_t ibytes = sizeof(T) * rows * px::gemm_smem(m, m, m, gt);
+  if (int e = px::smem_for(iface_rows_kernel<T>, ibytes)) return e;
+  iface_rows_kernel<T><<<sblocks, nt, ibytes, st>>>(kn, (const T*)spike, Dif, Uif, (T*)Ub, g
+                                                    PX_CR_NEXT(9, 0));
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  // the interface systems, 2P rows each
+  return px::launch_cr_factor<T>(
+      px::Rows<T>{px::Knots<T>{Dif, Uif, 2LL * g.P * mm, 2LL * g.P * mm, 2 * g.P}, 1, 0, 0,
+                  2 * g.P, 2 * g.P},
+      g.B, g.Npi, m, (T*)fif, 3LL * g.Npi * mm, wif, st PX_CR_ARG(stamps));
 }
 
 // Launches (c1), (c2), (c3).
@@ -392,14 +568,17 @@ extern "C" long long px_knot_solve_ws(int B, int N, int P, int m, int dz, int r)
 // (K1), C [B, N, m, dz], Rdiag [B, N, m], Cnext [B, N-1, m, dz].
 extern "C" int px_knot_factor(int is_f64, const void* Xi, const void* C, const void* Rdiag,
                               const void* Cnext, void* fT, void* spike, void* Ub, void* fif,
-                              void* ws, int B, int N, int P, int m, int dz, void* stream) {
+                              void* ws, int B, int N, int P, int m, int dz, void* stream PX_CR_PARAM) {
   if (!valid(B, N, P, m, dz) || dz < 1) return (int)cudaErrorInvalidValue;
   const Dims g(B, N, P, m, dz);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef PX_CR_TIMING
+  px::g_nst = 0;
+#endif
   return is_f64 ? launch_factor<double, true>(Xi, C, Rdiag, Cnext, nullptr, nullptr, fT, spike,
-                                              Ub, fif, ws, g, st)
+                                              Ub, fif, ws, g, st PX_CR_ARG(stamps))
                 : launch_factor<float, true>(Xi, C, Rdiag, Cnext, nullptr, nullptr, fT, spike,
-                                             Ub, fif, ws, g, st);
+                                             Ub, fif, ws, g, st PX_CR_ARG(stamps));
 }
 
 // Solve of the condensed KKT, rhs / out [B, N, dz + m, r].
@@ -427,12 +606,23 @@ extern "C" int px_knot_tridiag_solve(int is_f64, const void* diag, const void* u
   const Dims g(B, N, P, m, 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = is_f64 ? launch_factor<double, false>(nullptr, nullptr, nullptr, nullptr, diag, upper,
-                                                 fT, spike, Ub, fif, fws, g, st)
+                                                 fT, spike, Ub, fif, fws, g, st PX_CR_ARG(nullptr))
                   : launch_factor<float, false>(nullptr, nullptr, nullptr, nullptr, diag, upper,
-                                                fT, spike, Ub, fif, fws, g, st);
+                                                fT, spike, Ub, fif, fws, g, st PX_CR_ARG(nullptr));
   if (rc) return rc;
   return is_f64 ? launch_solve<double, false>(nullptr, nullptr, nullptr, fT, spike, Ub, fif,
                                               rhs, out, sws, g, r, st)
                 : launch_solve<float, false>(nullptr, nullptr, nullptr, fT, spike, Ub, fif,
                                              rhs, out, sws, g, r, st);
 }
+
+#ifdef PX_CR_TIMING
+// The kinds of the last timed factor's launches (kind + 256 level: 0 the
+// condensation, 1-3 a CR elimination, update and root, 5-8 the SPIKE
+// solve's odd and even reductions, root and back-substitution, 9 the
+// interface rows) into out; returns their number.
+extern "C" int px_cr_timing_kinds(int* out) {
+  for (int q = 0; q < px::g_nst; ++q) out[q] = px::g_kinds[q];
+  return px::g_nst;
+}
+#endif

@@ -17,15 +17,15 @@
 // and P_eff stay PSD in rounding when P is ill-conditioned). Measured on
 // the earlier design (scripts/k7_phase_timing.py), K1's shared-memory warp
 // Cholesky took 75-84% of a knot and staging the knot's inputs 4-7%, so:
-// - the Cholesky inverse is K7's own: up to 32 wide one warp with its rows
-//   in registers and the pivot's column and new inverse row broadcast by
-//   __shfl_sync (chol_inv_rows), past 32 two warps, one row a lane, that
-//   trade them through shared memory at one barrier a pivot
-//   (chol_inv_rows2); one rsqrt per pivot, no division. The pivots are
-//   unrolled for every width: a block of width n runs chol_width(n)
-//   pivots (n rounded up to 4 on one warp, to 8 on two), the rows past n
-//   being those of the identity, which leave the leading n x n inverse as
-//   it is, so every select on the pivot index folds away;
+// - the Cholesky inverse is common.cuh's chol_inv, written for K7: up to 32
+//   wide one warp with its rows in registers and the pivot's column and
+//   new inverse row broadcast by __shfl_sync, past 32 two warps, one row a
+//   lane, that trade them through shared memory at one barrier a pivot;
+//   one rsqrt per pivot, no division. The pivots are unrolled for every
+//   width: a block of width n runs chol_width(n) pivots (n rounded up to 4
+//   on one warp, to 8 on two), the rows past n being those of the
+//   identity, which leave the leading n x n inverse as it is, so every
+//   select on the pivot index folds away;
 // - the products run on the four chain warps between named barriers of
 //   the chain alone, P_eff and S as lower triangles;
 // - the helper warps copy knot k + 1's P, C, R and Cn into the second
@@ -60,7 +60,9 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using px::bar_arrive;
+using px::bar_sync;
+
 constexpr int kChainWarps = 4, kHelpWarps = 4;
 constexpr int kChainThreads = 32 * kChainWarps;
 constexpr int kHelpThreads = 32 * kHelpWarps;
@@ -73,15 +75,8 @@ constexpr int kBarChain = 1, kBarFull = 2, kBarEmpty = 4, kBarInFull = 6,
 constexpr int kSolveCols = 4, kSolveHelpWarps = 4;
 // the widest block of each type (shared memory; see the header)
 constexpr int kMaxWidthF32 = 64, kMaxWidthF64 = 48;
-// loads in flight per helper thread; shuffles in flight in chol_inv_rows
-constexpr int kCopyBatch = 16, kSlotBatch = 8;
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
+// loads in flight per helper thread
+constexpr int kCopyBatch = 16;
 
 // idx / d for 0 <= idx < 64 d, d <= 64, by a float reciprocal (the error,
 // below 1e-5, is far inside the 1 / 128 margin of a whole quotient)
@@ -119,189 +114,12 @@ __device__ __forceinline__ void copy_block(T* dst, int ld, const T* __restrict__
 // lanes of a warp reading a column of rows hit distinct banks.
 __host__ __device__ inline int pad(int n) { return n | 1; }
 
-template <typename T> __device__ __forceinline__ T rsqrt_(T x);
-template <> __device__ __forceinline__ float rsqrt_<float>(float x) { return rsqrtf(x); }
-template <> __device__ __forceinline__ double rsqrt_<double>(double x) { return rsqrt(x); }
-
 // (i, j), j <= i, of entry t of a row-major lower triangle
 __device__ __forceinline__ void tri_index(int t, int& i, int& j) {
   i = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
   if ((i + 1) * (i + 2) / 2 <= t) ++i;
   if (i * (i + 1) / 2 > t) --i;
   j = t - i * (i + 1) / 2;
-}
-
-// One pivot j of chol_inv_rows on a lane's row v (W slots): sl holds
-// slot j on entry and slot j + 1 on return.
-template <typename T, int W>
-__device__ __forceinline__ void chol_pivot(T (&v)[W], T& sl, bool& ok, const int j,
-                                           int lane) {
-  const T piv = __shfl_sync(kFull, sl, j);
-  ok = ok && piv > T(0);
-  const T rinv = rsqrt_(piv);
-  const T ll = lane > j ? sl * rinv : T(0);    // L(i, j), 0 at or above j
-  T nl = 0;
-#pragma unroll
-  for (int c0 = 0; c0 < W; c0 += kSlotBatch) {
-    // what this lane offers for slot c: X(j, c) if it owns row j, L(c, j)
-    // if it owns row c; kSlotBatch shuffles in flight
-    T got[kSlotBatch];
-#pragma unroll
-    for (int u = 0; u < kSlotBatch; ++u) {
-      const int c = c0 + u;
-      const bool isx = c <= j;
-      const T xjc = c < j ? v[c] * rinv : rinv;
-      got[u] = __shfl_sync(kFull, isx ? xjc : ll, isx ? j : c);
-    }
-    // row j takes X(j, c) for c <= j; the rows below update (their L(i, j)
-    // is 0 above j, so the others keep their slots). Selects, no branch:
-    // only lane j owns row j, so a branch here would diverge per slot.
-    T bl = 0;
-#pragma unroll
-    for (int u = 0; u < kSlotBatch; ++u) {
-      const int c = c0 + u;
-      const T upd = c == j ? -ll * got[u] : v[c] - ll * got[u];
-      v[c] = (lane == j) & (c <= j) ? got[u] : upd;
-      bl = c == j + 1 ? v[c] : bl;
-    }
-    const bool here = c0 <= j + 1 && j + 1 < c0 + kSlotBatch;
-    nl = here ? bl : nl;
-  }
-  sl = nl;
-}
-
-// Pivots of K7's Cholesky inverse of an n-wide block: n rounded up to a
-// multiple of 4 up to 32 (one warp), of 8 past it (two warps).
-__host__ __device__ constexpr int chol_width(int n) {
-  return n <= 32 ? (n + 3) / 4 * 4 : (n + 7) / 8 * 8;
-}
-
-// K7's Cholesky inverse for n <= NC = chol_width(n) <= 32: Xi (row-major,
-// stride ldx, zero above the diagonal) with A^{-1} = Xi^T Xi for the SPD
-// n x n block A (its lower triangle, stride lda; shared memory);
-// Jacobi-equilibrated as px::chol_inv_warp is and all NaN when a pivot is
-// not positive (or NaN). One warp, lane l owning row l in registers.
-// Right-looking and in place: before pivot j, slot c of row i holds the
-// inverse's partial row R(i, c) for c < j and the Schur-updated A(i, c)
-// for c >= j. At pivot j one rsqrt gives 1 / L(j, j); row j becomes
-// X(j, c) = R(j, c) / L(j, j), and one shuffle per slot c broadcasts
-// X(j, c) (c <= j, from lane j) or L(c, j) (c > j, from lane c), with
-// which every row i below j updates slot c: R(i, c) -= L(i, j) X(j, c),
-// A(i, c) -= L(i, j) L(c, j). No shared memory is written until Xi and no
-// barrier is needed. The NC pivots are unrolled, so every select on j
-// folds away and a slot is a shuffle and a multiply-add (2-4x fewer
-// cycles than a loop over the pivots, measured); rows n..NC-1 are the
-// identity's, whose pivots are 1 and whose L(i, j) are 0 for j < n, so
-// the leading n x n block of Xi comes out as for n pivots.
-template <typename T, int NC>
-__device__ __noinline__ void chol_inv_rows(const T* A, int lda, T* X, int ldx, int n,
-                                           int lane) {
-  constexpr int W = (NC + kSlotBatch - 1) / kSlotBatch * kSlotBatch;  // slots
-  const bool live = lane < n, pad = !live && lane < NC;
-  T v[W];
-  const T tiny = px::diag_tiny<T>();
-  const T dl = live ? rsqrt_(px::nan_max(A[lane * lda + lane], tiny)) : T(pad);
-#pragma unroll
-  for (int c = 0; c < W; ++c)
-    v[c] = live ? (c <= lane ? A[lane * lda + c] : T(0)) : T(pad && c == lane);
-  // equilibrate: A(i, c) d_i^-1/2 d_c^-1/2
-#pragma unroll
-  for (int c = 0; c < W; ++c) v[c] *= dl * __shfl_sync(kFull, dl, c);
-  bool ok = true;
-  T sl = v[0];                                 // slot j of the lane's row
-#pragma unroll
-  for (int j = 0; j < NC; ++j) chol_pivot<T, W>(v, sl, ok, j, lane);
-  // Xi(i, c) = X(i, c) d_c^-1/2
-  const T nan = px::quiet_nan<T>();
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const T dc = __shfl_sync(kFull, dl, c);
-    if (c < n && live) X[lane * ldx + c] = ok ? (c <= lane ? v[c] * dc : T(0)) : nan;
-  }
-}
-
-// One pivot j of chol_inv_rows2 on the row v of r (W slots): e is this
-// pivot's exchange buffer [2W]; sl holds slot j on entry, j + 1 on return.
-template <typename T, int W>
-__device__ __forceinline__ void chol_pivot2(T (&v)[W], T& sl, bool& ok, T* e, const int j,
-                                            int r) {
-  // publish column j of the Schur complement (each row below j its slot)
-  // and row j's partial inverse R(j, c < j) (its owner)
-  if (r >= j && r < W) e[r] = sl;
-  if (r == j) {
-#pragma unroll
-    for (int c = 0; c < W; ++c)
-      if (c < j) e[W + c] = v[c];
-  }
-  bar_sync(kBarChol, 64);
-  const T piv = e[j];
-  ok = ok && piv > T(0);
-  const T rinv = rsqrt_(piv);
-  const T ll = r > j ? sl * rinv : T(0);       // L(r, j), 0 at or above j
-  T nl = 0;
-#pragma unroll
-  for (int c = 0; c < W; ++c) {
-    // X(j, c) for c <= j, L(c, j) for c > j
-    const T b = c < j ? e[W + c] * rinv : (c == j ? rinv : e[c] * rinv);
-    const T upd = c == j ? -ll * b : v[c] - ll * b;
-    v[c] = (r == j) & (c <= j) ? b : upd;
-    nl = c == j + 1 ? v[c] : nl;
-  }
-  sl = nl;
-}
-
-// K7's Cholesky inverse for 32 < n <= NC = chol_width(n) <= 64, on two
-// warps: the same Xi as chol_inv_rows, lane l of warp w owning row
-// 32 w + l (one row, NC slots, in registers: two rows a lane spill at 48
-// in float64; rows n..NC-1 the identity's). The warps cannot shuffle to
-// each other, so each pivot publishes column j and row j's partial
-// inverse in shared memory (two buffers of 2 NC, in A once its rows are
-// in registers) and meets at one 64-thread barrier; every lane then forms
-// L(c, j) and X(j, c) itself with the pivot's rsqrt.
-template <typename T, int NC>
-__device__ __noinline__ void chol_inv_rows2(T* A, int lda, T* X, int ldx, int n, int warp,
-                                            int lane) {
-  const int r = 32 * warp + lane;
-  const bool live = r < n, pad = !live && r < NC;
-  T v[NC];
-  const T tiny = px::diag_tiny<T>();
-  const T dr = live ? rsqrt_(px::nan_max(A[r * lda + r], tiny)) : T(pad);
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    v[c] = live ? (c <= r ? A[r * lda + c] : T(0)) : T(pad && c == r);
-  bar_sync(kBarChol, 64);                      // A is scratch from here
-  T* D = A;                                    // d_c^-1/2
-  T* E = A + NC;                               // two exchange buffers
-  if (r < NC) D[r] = dr;
-  bar_sync(kBarChol, 64);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) v[c] *= dr * D[c];
-  bool ok = true;
-  T sl = v[0];
-#pragma unroll
-  for (int j = 0; j < NC; ++j) chol_pivot2<T, NC>(v, sl, ok, E + (j & 1) * 2 * NC, j, r);
-  const T nan = px::quiet_nan<T>();
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    if (c < n && live) X[r * ldx + c] = ok ? (c <= r ? v[c] * D[c] : T(0)) : nan;
-}
-
-// The chain's Cholesky inverse of an n x n block, n <= W: chol_width(n)
-// pivots, on one warp up to 32 and two past it. A is overwritten past 32.
-template <typename T, int W, int NC = 4>
-__device__ __forceinline__ void chain_chol(T* A, int lda, T* X, int ldx, int n, int warp,
-                                           int lane) {
-  if constexpr (NC < W) {
-    if (n > NC) {
-      chain_chol<T, W, chol_width(NC + 1)>(A, lda, X, ldx, n, warp, lane);
-      return;
-    }
-  }
-  if constexpr (NC > 32) {
-    if (warp < 2) chol_inv_rows2<T, NC>(A, lda, X, ldx, n, warp, lane);
-  } else {
-    if (warp == 0) chol_inv_rows<T, NC>(A, lda, X, ldx, n, lane);
-  }
 }
 
 // Shared-memory layout of the factor, in elements of T (strides padded).
@@ -469,7 +287,7 @@ qd_factor_kernel(const T* __restrict__ P_g, const T* __restrict__ C_g,
     PX_CSTAMP(3);
     if (k >= 2) bar_sync(kBarEmpty + s, kFactorThreads);   // Pinv_{k-2} formed
     PX_CSTAMP(4);
-    chain_chol<T, W>(A, ldd, Xi, ldd, dz, warp, lane);
+    px::chol_inv<T, W>(A, ldd, Xi, ldd, dz, warp, lane, A, kBarChol);
     bar_sync(kBarChain, kChainThreads);
     PX_CSTAMP(5);
     // Y = C_k Xi^T: Y(a, c) = sum_{e <= c} C(a, e) Xi(c, e)
@@ -495,7 +313,7 @@ qd_factor_kernel(const T* __restrict__ P_g, const T* __restrict__ C_g,
     bar_sync(kBarChain, kChainThreads);
     PX_CSTAMP(7);
     if (k + 2 < N) bar_arrive(kBarInEmpty + s, kFactorThreads);   // inputs read
-    chain_chol<T, W>(A, lds, Zi, lds, m, warp, lane);
+    px::chol_inv<T, W>(A, lds, Zi, lds, m, warp, lane, A, kBarChol);
     __threadfence_block();
     PX_CSTAMP(8);
     bar_arrive(kBarFull + s, kFactorThreads);              // Xi, Zi of knot k

@@ -222,10 +222,11 @@ def knot_condense_factor_plain(Xi, C, Rdiag, Cnext, mesh):
 
 def knot_condense_factor(Xi, C, Rdiag, Cnext, mesh):
     """K9 factor from the knot factors Xi [B, N, dz, dz] of K1 (Pinv =
-    Xi^T Xi): the condensation onto the dual system, each partition's
-    interior factor, SPIKE columns and interface rows (P x B thread
-    blocks), then the interface factor (B thread blocks); two kernel
-    launches in one call (csrc/knot.cu). Returns the factor dict."""
+    Xi^T Xi): the condensation onto the dual system, every partition's
+    interior factor, SPIKE columns and interface rows, then the interface
+    factor, each step a launch (per level where it has levels) of a thread
+    block or warp per row: 5 log2(Npk) + 2 log2(Npi) + 6 kernel launches
+    in one call (csrc/knot.cu). Returns the factor dict."""
     if not _cuda_or_cpu(Xi, "knot_condense_factor"):
         return knot_condense_factor_plain(Xi, C, Rdiag, Cnext, mesh)
     B, N, m, dz = _check_kkt_shapes(C, Cnext, "knot_condense_factor")

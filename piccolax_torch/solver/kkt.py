@@ -304,9 +304,11 @@ def _check_kkt_shapes(C, Cnext, what, min_knots=2, max_dz=math.inf,
 
 
 def condense_cr_factor(Xi, C, Rdiag, Cnext):
-    """K3 factor: condensation onto the dual system and every CR level in
-    one launch, one thread block per problem (csrc/condensed_cr.cu).
-    Xi [B, N, dz, dz] are the knot factors of K1; returns cr."""
+    """K3 factor: condensation onto the dual system, then the CR levels, a
+    launch per half level with a thread block (or warp) per row of every
+    problem: 2 log2(Np) + 2 kernel launches in one call
+    (csrc/condensed_cr.cu). Xi [B, N, dz, dz] are the knot factors of K1;
+    returns cr."""
     if not _cuda_or_cpu(Xi, "condense_cr_factor"):
         return condense_cr_factor_plain(Xi, C, Rdiag, Cnext)
     B, N, m, dz = _check_kkt_shapes(C, Cnext, "condense_cr_factor")
@@ -332,10 +334,9 @@ def condensed_factor(P, C, Rdiag, Cnext):
     Returns (Xi, cr).
 
     Replaces piccolax/solver/kkt.py: condensed_factor over cr_factor: K1 on
-    the knot blocks, then the K3 factor launch. The KKT blocks are 12 x 12
-    on config 1 and 40 x 40 on config 3 (m <= 64), so the bound is the bytes
-    of P, C and the factor; one thread block per problem runs the whole
-    level loop, so a factor is two launches.
+    the knot blocks, then the K3 factor (`condense_cr_factor`). The KKT
+    blocks are 12 x 12 on config 1 and 40 x 40 on config 3 (m <= 64); what
+    bounds a factor is its chain of log2(Np) dependent levels.
     """
     if not _cuda_or_cpu(P, "condensed_factor"):
         return condensed_factor_plain(P, C, Rdiag, Cnext)

@@ -132,10 +132,12 @@ def test_psd_clamp_matches_jax(mode, iters, floor_rel):
 # -- K3: condensed KKT by cyclic reduction -----------------------------------
 
 
-@pytest.mark.parametrize("N", [11, 16])
-def test_condensed_factor_and_solve_match_jax(N):
+@pytest.mark.parametrize("N,m,dz", [pytest.param(11, 12, 14, id="11"),
+                                    pytest.param(16, 12, 14, id="16"),
+                                    pytest.param(13, 40, 44, id="13-40-44")])
+def test_condensed_factor_and_solve_match_jax(N, m, dz):
+    """Config 1's blocks (dz = 14, m = 12) and the CNOT's (44, 40)."""
     rng = np.random.default_rng(N)
-    dz, m = 14, 12
     P = _spd(rng, (N,), dz, shift=1.0)
     C = rng.standard_normal((N, m, dz))
     Cn = rng.standard_normal((N - 1, m, dz))
