@@ -57,7 +57,16 @@ most twice the plain float32 version's error), and one indefinite dual
 block whose NaN mask must equal the plain version's and stay in its
 problem; K1, K3 and K9 also at a sweep of widths that reaches every
 register class of their Cholesky inverse (up to the cap of 64), with an
-interior of one knot (K9) and N short of a power of two.
+interior of one knot (K9) and N short of a power of two. K2 in float32 is
+also held against the plain version in float64 (at most twice the plain
+float32 version's error, three seeds), and at a sweep of widths reaching
+each padding class (n = 1 to 64, both types and modes) with a NaN block
+whose mask must equal the plain version's and a block one ulp short of
+symmetric, which must come out all NaN (the kernels take exactly
+symmetric blocks); K3's solve at B = 1, 2, 12, 16, 24, 64 and 256 (every
+cluster size it launches with) and N = 13 and 2, one launch a call. The
+paths print K4's and K6's launches by block width (residual sweeps against
+derivative augmentations).
 
 Each of 4-12 resets every launch counter just before it and reads them
 just after, and fails if a kernel of its path was not launched or a
@@ -139,6 +148,26 @@ def _rel_err(a, b):
     return d, d / max(b[fin].double().abs().max().item(), 1e-30)
 
 
+def _sym(rng, lead, t):
+    """Symmetric indefinite blocks [*lead[:-1], n, n], n = lead[-1], N(0, 1)
+    symmetrized, on the card through t."""
+    W = rng.standard_normal((*lead, lead[-1]))
+    return t(0.5 * (W + np.swapaxes(W, -1, -2)))
+
+
+def _k2_vs_float64(W, floor_rel, iters, mode, label):
+    """K2 in float32 against the plain version in float64 on the same
+    inputs: at most twice the plain float32 version's relative error (or
+    1e-6). Returns both errors."""
+    from piccolax_torch.solver import kkt
+    ref = kkt.psd_clamp_plain(W.double(), floor_rel, iters, mode)
+    ek = _rel_err(kkt.psd_clamp(W, floor_rel, iters, mode), ref)[1]
+    ep = _rel_err(kkt.psd_clamp_plain(W, floor_rel, iters, mode), ref)[1]
+    _check(ek <= max(2 * ep, 1e-6), f"psd_clamp {label} float32 ({mode}): rel err vs "
+           f"float64 {ek:.3e}, over twice the plain float32 version's {ep:.3e}")
+    return ek, ep
+
+
 def _card():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -175,8 +204,8 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
         return _bound(flops, nbytes, dtype)
 
     # -- K2: psd_clamp on symmetric indefinite knot Hessians [B, N, dz, dz]
-    W = rng.standard_normal((B, N, dz, dz))
-    W = t(0.5 * (W + np.swapaxes(W, -1, -2)))
+    # (float32 also against the plain version in float64, 2x rule)
+    W = _sym(rng, (B, N, dz), t)
     iters, floor_rel = clamp or ((32, 1e-6) if f64 else (15, 3e-3))
     errs = {}
     for mode in ("pos", "abs"):
@@ -184,8 +213,15 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
         ref = kkt.psd_clamp_plain(W, floor_rel, iters, mode)
         errs[mode], rel = _rel_err(got, ref)
         _check(rel < tol["K2"], f"psd_clamp({mode}, {dtype}) rel err {rel}")
+    if not f64:
+        for seed in (None, *QD_F32_SEEDS):
+            Ws = W if seed is None else _sym(np.random.default_rng(seed), (B, N, dz), t)
+            _k2_vs_float64(Ws, floor_rel, iters, "pos",
+                           f"[{B},{N},{dz},{dz}] seed {seed or 1234}")
     M = B * N
-    flops = M * (iters * 4 * dz ** 3 + 2 * dz ** 3 + 6 * dz * dz)
+    # S, P = 0.5 S S, P S and the last S Y are symmetric (polynomials in W):
+    # each product needs dz^2 (dz + 1) / 2 multiply-adds, two a sweep
+    flops = M * (iters * 2 * dz * dz * (dz + 1) + dz * dz * (dz + 1) + 6 * dz * dz)
     # the row describes mode "pos", the one the main paths run
     record("psd_clamp", "piccolax_torch/csrc/psd_clamp.cu",
            "piccolax/solver/kkt.py:150", errs["pos"],
@@ -245,7 +281,7 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
     s_bytes = es * B * (N * dz * dz + N * m * dz + (N - 1) * m * dz
                         + 3 * Np * m * m + 2 * N * (dz + m))
     fp = kkt.condense_cr_factor_plain(Xi, C, R, Cn)
-    record("condensed_solve", "piccolax_torch/csrc/condensed_cr.cu",
+    record("condensed_solve", "piccolax_torch/csrc/cr_solve.cu",
            "piccolax/solver/kkt.py:464", err_s,
            _time_ms(lambda: kkt.condensed_solve((Xi, fk), C, Cn, rhs, dz), reps),
            _time_ms(lambda: kkt.condensed_solve_plain((Xi, fp), C, Cn, rhs, dz), reps),
@@ -273,6 +309,19 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
     e12, rel12 = _rel_err(ex.expm_taylor_fixed(Aaug, order, sq + 1),
                           ex.expm_taylor_fixed_plain(Aaug, order, sq + 1))
     _check(rel12 < tol["K4"], f"expm_taylor_fixed 12x12 ({dtype}) rel err {rel12}")
+    if f64:
+        # the batched quickstart's derivative augmentations: 3 x 4 wide for
+        # its three derivative directions (two drives and dt), nv^2 a knot
+        Ma = Aaug.numel() // 144
+        record("expm_taylor_fixed", "piccolax_torch/csrc/expm_taylor.cu",
+               "piccolax/ops/expm.py:143", e12,
+               _time_ms(lambda: ex.expm_taylor_fixed(Aaug, order, sq + 1), reps),
+               _time_ms(lambda: ex.expm_taylor_fixed_plain(Aaug, order, sq + 1), reps),
+               bound(Ma * _taylor_flops(12, order, sq + 1), 2 * Ma * 144 * es),
+               _time_ms(lambda: torch.linalg.matrix_exp(Aaug), reps),
+               f"{tol['K4']:.0e} relative",
+               shape=f"derivative augmentations {list(Aaug.shape)} {dtype}, order "
+                     f"{order}, s={sq + 1}", variant="float64_quickstart_12x12")
     Mx = Aexp.numel() // 16
     record("expm_taylor_fixed", "piccolax_torch/csrc/expm_taylor.cu",
            "piccolax/ops/expm.py:143", max(err, e12),
@@ -696,6 +745,103 @@ def check_cr_widths(reps=5):
             print(f"cr width sweep dz={dz} m={m} {dtype}: " + "; ".join(line), flush=True)
 
 
+# K2's widths: n = 1 and each padding class (16, 32, 48, 64) at its edges
+# and inside it
+K2_SWEEP = [1, 2, 5, 9, 13, 16, 17, 24, 31, 32, 33, 40, 47, 48, 49, 57, 63, 64]
+
+
+def check_k2_widths(reps=5):
+    """Phase 3, K2 at widths off the paths: [37, n, n] (not a multiple of
+    a thread block's blocks) for each n of K2_SWEEP, float32 (20 sweeps,
+    floor 3e-3) and float64 (32 sweeps, 1e-6), modes "pos" and "abs":
+    float64 to 1e-9 relative of the plain version, float32 to 1e-4 and
+    against the plain version in float64 (2x rule); then block 3 holding
+    a NaN, whose NaN mask must equal the plain version's (the other blocks
+    finite), and block 5 made not exactly symmetric by one ulp (n > 1),
+    which must come out all NaN, out of the kernels' contract, with the
+    other blocks unchanged."""
+    import torch
+    from piccolax_torch.solver import kkt
+
+    rng = np.random.default_rng(27)
+    for dtype, iters, floor_rel in (("float32", 20, 3e-3), ("float64", 32, 1e-6)):
+        def t(x):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=getattr(torch, dtype),
+                                   device="cuda")
+        line = []
+        for n in K2_SWEEP:
+            W = _sym(rng, (37, n), t)
+            for mode in ("pos", "abs"):
+                rel = _rel_err(kkt.psd_clamp(W, floor_rel, iters, mode),
+                               kkt.psd_clamp_plain(W, floor_rel, iters, mode))[1]
+                _check(rel < (1e-9 if dtype == "float64" else 1e-4),
+                       f"psd_clamp [37,{n},{n}] {dtype} ({mode}): rel err {rel:.3e}")
+                if dtype == "float32":
+                    _k2_vs_float64(W, floor_rel, iters, mode, f"[37,{n},{n}]")
+            Wn = W.clone()
+            Wn[3, n // 2, n - 1] = float("nan")
+            got = kkt.psd_clamp(Wn, floor_rel, iters, "pos")
+            ref = kkt.psd_clamp_plain(Wn, floor_rel, iters, "pos")
+            _check(torch.equal(torch.isnan(got), torch.isnan(ref)),
+                   f"psd_clamp [37,{n},{n}] {dtype}: NaN mask differs from the plain version")
+            _check(bool(torch.isnan(got[3]).any()) and bool(torch.isfinite(got[:3]).all())
+                   and bool(torch.isfinite(got[4:]).all()),
+                   f"psd_clamp [37,{n},{n}] {dtype}: NaN not in block 3 alone")
+            if n > 1:
+                Wa = W.clone()
+                Wa[5, 0, n - 1] = torch.nextafter(Wa[5, 0, n - 1], Wa.new_tensor(np.inf))
+                got = kkt.psd_clamp(Wa, floor_rel, iters, "pos")
+                ref = kkt.psd_clamp(W, floor_rel, iters, "pos")
+                keep = torch.arange(37, device="cuda") != 5
+                _check(bool(torch.isnan(got[5]).all()) and torch.equal(got[keep], ref[keep]),
+                       f"psd_clamp [37,{n},{n}] {dtype}: a block not exactly symmetric "
+                       f"did not come out all NaN alone")
+            line.append(f"{n}: {rel:.1e} "
+                        f"{_time_ms(lambda: kkt.psd_clamp(W, floor_rel, iters), reps):.4f} ms")
+        print(f"psd_clamp width sweep {dtype} (n: rel err, kernel ms): " + ", ".join(line),
+              flush=True)
+
+
+# batches of K3's solve reaching every cluster size it launches with (16,
+# 8, 4, 2, 1: the wrapper's choice, lowered where the card cannot hold all
+# B clusters at once)
+CR_SOLVE_BATCHES = (1, 2, 12, 16, 24, 64, 256)
+
+
+def check_cr_solve_clusters(reps=5):
+    """Phase 3, K3's solve at every cluster size: B of CR_SOLVE_BATCHES,
+    N = 13 (short of 16) and N = 2, float64 at the quickstart's blocks
+    (dz = 15, m = 13) and float32 at the CNOT's (44, 40), held as
+    _cr_accuracy holds it (float64 to 1e-9, float32 against the plain
+    version in float64, 2x rule); each solve call must count one
+    condensed_solve launch, and every cluster size must have run."""
+    from piccolax_torch import _kernels
+    from piccolax_torch.solver import kkt
+
+    rng = np.random.default_rng(28)
+    lib = _kernels.load("cr_solve")
+    ran = set()
+    for dtype, dz, m in (("float64", 15, 13), ("float32", 44, 40)):
+        for B in CR_SOLVE_BATCHES:
+            S = lib.px_condensed_solve_cluster(int(dtype == "float64"), B, m, dz, 1)
+            _check(S > 0, f"condensed_solve B={B} {dtype}: no launch plan")
+            ran.add(S)
+            line = []
+            for N in (13, 2):
+                label = f"[{B},{N},{dz},{dz}] m={m} {dtype}"
+                (_, C, _, Cn, rhs), (Xi, fk), _, _, err_s, _ = _cr_accuracy(
+                    B, N, dz, m, dtype, rng, label)
+                before = _kernels.LAUNCHES["condensed_solve"]
+                kkt.condensed_solve((Xi, fk), C, Cn, rhs, dz)
+                _check(_kernels.LAUNCHES["condensed_solve"] == before + 1,
+                       f"condensed_solve {label}: not one launch a call")
+                ms = _time_ms(lambda: kkt.condensed_solve((Xi, fk), C, Cn, rhs, dz), reps)
+                line.append(f"N={N} max_err={err_s:.2e} kernel_ms={ms:.4f}")
+            print(f"cr solve B={B} {dtype} dz={dz} m={m}, cluster {S}: " + "; ".join(line),
+                  flush=True)
+    _check(ran >= {1, 2, 4, 8, 16}, f"condensed_solve ran cluster sizes {sorted(ran)} only")
+
+
 def check_caps():
     """Phase 3: K7 and K8 on the card take exactly their stated widths
     (K7 64 in float32 and 48 in float64, as its library reports; K8 64)
@@ -1045,7 +1191,8 @@ def _read_launches(path, required, forbidden=()):
     launched, none of `forbidden` (the path must not fall back)."""
     from piccolax_torch import _kernels
     launches = dict(_kernels.LAUNCHES)
-    print(f"{path} launches: {json.dumps(launches)}", flush=True)
+    print(f"{path} launches: {json.dumps(launches)}; K4 and K6 by block width: "
+          f"{json.dumps(_kernels.WIDTHS)}", flush=True)
     for k in required:
         _check(launches[k] > 0, f"kernel {k} was not launched on the {path} path")
     for k in forbidden:
@@ -1382,7 +1529,8 @@ def cnot_knot():
         seconds = time.perf_counter() - t0
         label = "cnot-cr-40" if P is None else f"cnot-knot-P{P}-40"
         if P is None:
-            _read_launches(label, C3_KERNELS, ["knot_factor", "knot_solve", *OFF_PATH])
+            cr_launches = _read_launches(label, C3_KERNELS,
+                                         ["knot_factor", "knot_solve", *OFF_PATH])
         else:
             _read_launches(label, KNOT_KERNELS,
                            ["condensed_factor", "condensed_solve", *OFF_PATH])
@@ -1428,7 +1576,7 @@ def cnot_knot():
           flush=True)
     _check(Fs[0] > 0.999, f"{label}: F {Fs[0]} <= 0.999")
     return launches, dict(nlp=nlp, params=params, Z0=Z0, cr40=ref, prob=prob,
-                          layout=layout)
+                          layout=layout, cr_launches=cr_launches)
 
 
 def cnot_qd(run_k):
@@ -1570,6 +1718,8 @@ def main():
     check_qd(4, 2, 14, 12, "float32", record, reps=5, variant="N2_float32")
     check_qd_widths()
     check_cr_widths()
+    check_k2_widths()
+    check_cr_solve_clusters()
     check_caps()
     check_tri_lower_inv(record, reps=5)
     check_kernels(C3_B, C3_N, 44, 40, "float32", record, reps=5, clamp=(20, 3e-3),
@@ -1596,6 +1746,7 @@ def main():
     paths["config1_qd"], run1q = config1(256, 50, 10.0, kkt_backend="qd")
     paths["config3"], run3 = config3()
     paths[f"cnot_knot_p{max(KNOT_PARTS)}"], run_k = cnot_knot()
+    paths["cnot_cr_40"] = run_k["cr_launches"]
     paths["config3_qd"], run3q = config3(kkt_backend="qd")
     paths["cnot_qd"] = cnot_qd(run_k)
     if args.profile:

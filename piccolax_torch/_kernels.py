@@ -9,7 +9,9 @@ built or loaded when the module is imported.
 `LAUNCHES` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else (one for each call
 of the K3 factor and the K9 wrappers, whose C entries launch a sequence of
-kernels: a factor one or two a level, a K9 solve three).
+kernels: a factor one or two a level, a K9 solve three). `WIDTHS` counts
+the same launches of K4 and K6 by block width ("expm_taylor_fixed 12"),
+which tells a path's residual sweeps from its derivative augmentations.
 """
 
 from __future__ import annotations
@@ -23,13 +25,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "load", "build", "check",
-           "stream_handle", "is_f64", "require"]
+__all__ = ["LAUNCHES", "WIDTHS", "reset_launch_counts", "count_launch", "load",
+           "build", "check", "stream_handle", "is_f64", "require"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "expm_taylor", "expm_pade13",
-            "expm_pade_fixed", "qd", "tri_inv", "knot")
+_SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "cr_solve", "expm_taylor",
+            "expm_pade13", "expm_pade_fixed", "qd", "tri_inv", "knot")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-shared", "-Xcompiler", "-fPIC"]
 
@@ -38,6 +40,8 @@ LAUNCHES = {"chol_inv_factor": 0, "psd_clamp": 0, "condensed_factor": 0,
             "expm_pade_fixed": 0, "qd_factor": 0, "qd_solve": 0,
             "tri_lower_inv": 0, "knot_factor": 0, "knot_solve": 0,
             "knot_tridiag_solve": 0}
+
+WIDTHS: dict = {}
 
 _LIBS: dict = {}
 
@@ -50,10 +54,13 @@ _SIGNATURES = {
     "psd_clamp": {"px_psd_clamp": ([_C, _P, _P, _L, _C, _C, _C, _D, _P], _C)},
     "condensed_cr": {
         "px_cr_factor": ([_C, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P], _C),
+        "px_cr_factor_ws": ([_C, _C, _C, _C], _L),
+    },
+    "cr_solve": {
         "px_condensed_solve": ([_C, _P, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C,
                                 _C, _C, _P], _C),
-        "px_cr_factor_ws": ([_C, _C, _C, _C], _L),
         "px_condensed_solve_ws": ([_C, _C, _C, _C, _C], _L),
+        "px_condensed_solve_cluster": ([_C] * 5, _C),
     },
     "expm_taylor": {"px_expm_taylor": ([_C, _P, _P, _L, _C, _C, _C, _P], _C)},
     "expm_pade13": {"px_expm_pade13": ([_C, _P, _P, _P, _L, _C, _C, _P], _C)},
@@ -77,6 +84,14 @@ _SIGNATURES = {
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    WIDTHS.clear()
+
+
+def count_launch(name: str, width: int) -> None:
+    """One launch of kernel `name` on blocks `width` wide (K4, K6)."""
+    LAUNCHES[name] += 1
+    key = f"{name} {width}"
+    WIDTHS[key] = WIDTHS.get(key, 0) + 1
 
 
 def _nvcc() -> str:

@@ -18,9 +18,10 @@
 // the interiors of the knot partitions and on the interface systems.
 //
 // cr_solve_block is the device form of piccolax.solver.kkt.cr_solve: one
-// system's whole solve in one thread block (K3's and K9's solves), and
-// dual_rhs_knots / primal_knots the condensed KKT's per-knot right-hand
-// side and primal recovery over a range of knots.
+// system's whole solve in one thread block (K9's solves, and K3's for
+// blocks up to 16 wide at one block a problem), and dual_rhs_knots /
+// primal_knots the condensed KKT's per-knot right-hand side and primal
+// recovery over a range of knots.
 //
 // Under the compile-time switch PX_CR_TIMING (off by default) the factor's
 // kernels write clock64() and %globaltimer stamps of their first thread
@@ -109,6 +110,25 @@ template <> __device__ __forceinline__ double rsqrt_<double>(double x) { return 
 constexpr unsigned kFull = 0xffffffffu;
 // shuffles in flight in chol_inv_rows
 constexpr int kSlotBatch = 8;
+
+// cp.async: one element global -> shared, in flight until waited for
+// (commit_group closes a group; wait_group<N> waits until at most N of the
+// committed groups are in flight).
+__device__ __forceinline__ void cp_async(float* d, const float* s) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(d)), "l"(s) : "memory");
+}
+__device__ __forceinline__ void cp_async(double* d, const double* s) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(d)), "l"(s) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
 
 // Named barriers (0 is __syncthreads).
 __device__ __forceinline__ void bar_sync(int id, int n) {

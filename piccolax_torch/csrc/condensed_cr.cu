@@ -25,9 +25,7 @@
 // coalesced loads (block_gemm), each entry summed in the earlier order
 // (the wide float32 products in float64).
 //
-// Solve: one thread block a problem runs the dual right-hand side, the
-// whole CR solve and the primal recovery (cr_solve_block, float32 sums in
-// float64); one launch.
+// Solve: csrc/cr_solve.cu.
 //
 // Factor layout cr [B, 3, Np, m, m]: level l (n = Np >> l rows, n/2 odd
 // rows eliminated) stores Xi, Ul, Ur of its odd rows at slots
@@ -36,43 +34,6 @@
 #include "common.cuh"
 
 namespace {
-
-// out = K^{-1} rhs for the condensed KKT: dual rhs, CR reduce, root,
-// back-substitution, primal recovery. rhs/out [N, dz + m, r].
-template <typename T>
-__global__ void condensed_solve_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
-                                       const T* __restrict__ Cn_g, const T* __restrict__ cr_g,
-                                       const T* __restrict__ rhs_g, T* __restrict__ out_g,
-                                       T* __restrict__ ws_g, int N, int Np, int m, int dz,
-                                       int r, long long ws_stride) {
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int mm = m * m, md = m * dz, dd = dz * dz, mb = dz + m;
-  const int mr = m * r, dr = dz * r;
-  const T* Xi = Xi_g + (long long)b * N * dd;
-  const T* C = C_g + (long long)b * N * md;
-  const T* Cn = Cn_g + (long long)b * (N - 1) * md;
-  const T* cr = cr_g + (long long)b * 3 * Np * mm;
-  const T* rhs = rhs_g + (long long)b * N * mb * r;
-  T* out = out_g + (long long)b * N * mb * r;
-  T* ws = ws_g + (long long)b * ws_stride;
-  T* q = ws;                       // [N, dz, r]
-  T* t = q + N * dr;               // [N, dz, r]
-  T* A0 = t + N * dr;              // [Np, m, r]
-  T* A1 = A0 + Np * mr;
-  T* rodd = A1 + Np * mr;          // [Np, m, r] packed like cr
-  T* tl = rodd + Np * mr;          // [Np/2, m, r]
-  T* q2 = tl + (Np / 2) * mr;      // [Np/2, m, r]
-
-  // dual rhs b_k = C_k t_k - rc_k + Cnext_k t_{k+1}, zero-padded to Np
-  for (int idx = N * mr + tid; idx < Np * mr; idx += nt) A0[idx] = T(0);
-  px::dual_rhs_knots<T>(Xi, C, Cn, rhs, N, 0, N, m, dz, r, q, t, A0);
-
-  T* x = px::cr_solve_block<T>(cr, A0, A1, rodd, tl, q2, Np, m, r);
-  // primal recovery: w_k = rz_k - C_k^T lam_k - Cnext_{k-1}^T lam_{k-1}
-  px::primal_knots<T>(Xi, C, Cn, rhs, x, nullptr, 0, N, m, dz, r, t, q, out);
-}
-
-constexpr int kThreads = 256;
 
 // Workspace of the factor a problem: D and U [N, m, m], Y [N, 3, m, dz],
 // then launch_cr_factor's.
@@ -105,10 +66,6 @@ extern "C" long long px_cr_factor_ws(int N, int Np, int m, int dz) {
   return factor_ws(N, Np, m, dz);
 }
 
-extern "C" long long px_condensed_solve_ws(int N, int Np, int m, int dz, int r) {
-  return 2LL * N * dz * r + px::cr_solve_ws_elems(Np, m, r);
-}
-
 // m <= 64 (chol_inv). Under PX_CR_TIMING the stamps (8 a launch) of the
 // first thread block of each launch follow the stream; px_cr_timing_kinds
 // then names the launches.
@@ -135,25 +92,3 @@ extern "C" int px_cr_timing_kinds(int* out) {
   return px::g_nst;
 }
 #endif
-
-extern "C" int px_condensed_solve(int is_f64, const void* Xi, const void* C,
-                                  const void* Cnext, const void* cr,
-                                  const void* rhs, void* out, void* ws, int B,
-                                  int N, int Np, int m, int dz, int r,
-                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long wss = px_condensed_solve_ws(N, Np, m, dz, r);
-  if (B > 0) {
-    if (is_f64)
-      condensed_solve_kernel<double><<<B, kThreads, 0, st>>>(
-          (const double*)Xi, (const double*)C, (const double*)Cnext,
-          (const double*)cr, (const double*)rhs, (double*)out, (double*)ws,
-          N, Np, m, dz, r, wss);
-    else
-      condensed_solve_kernel<float><<<B, kThreads, 0, st>>>(
-          (const float*)Xi, (const float*)C, (const float*)Cnext,
-          (const float*)cr, (const float*)rhs, (float*)out, (float*)ws,
-          N, Np, m, dz, r, wss);
-  }
-  return (int)cudaGetLastError();
-}

@@ -99,7 +99,7 @@ def expm_taylor_fixed(A, order: int | None = None, squarings: int = 2):
     rc = lib.px_expm_taylor(_kernels.is_f64(A), A.data_ptr(), out.data_ptr(),
                             batch, n, order, squarings,
                             _kernels.stream_handle(A))
-    _kernels.LAUNCHES["expm_taylor_fixed"] += 1
+    _kernels.count_launch("expm_taylor_fixed", n)
     _kernels.check(rc, "expm_taylor_fixed")
     return out
 
@@ -191,7 +191,7 @@ def expm_pade_fixed(A, order: int = 7, squarings: int = 2):
     rc = lib.px_expm_pade_fixed(_kernels.is_f64(A), A.data_ptr(), out.data_ptr(),
                                 A.numel() // (n * n), n, order, squarings,
                                 _kernels.stream_handle(A))
-    _kernels.LAUNCHES["expm_pade_fixed"] += 1
+    _kernels.count_launch("expm_pade_fixed", n)
     _kernels.check(rc, "expm_pade_fixed")
     return out
 

@@ -141,10 +141,16 @@ def psd_clamp(W, floor_rel, iters: int = 32, mode: str = "pos"):
 
     mode "pos": ~U max(lam, 0) U^T + floor I; mode "abs": ~U |lam| U^T +
     floor I, floor = max(floor_rel, 0.5 * 1.5^-iters) * max(1, s).
-    Replaces piccolax/solver/kkt.py: psd_clamp. Bound on the H100: float32
-    arithmetic (2 products of n^3 per sweep). One thread per entry (up to
-    1024 threads, then a few entries each), the block in shared memory; see
-    csrc/psd_clamp.cu.
+    W must be exactly symmetric (W_ij == W_ji bit for bit), as the IPM's
+    blocks are. The plain version takes any W; on the card the float32
+    kernel reads W's upper triangle, so both kernels test the symmetry and
+    return an all-NaN block where it fails.
+
+    Replaces piccolax/solver/kkt.py: psd_clamp. Bound on the H100:
+    arithmetic (2 symmetric products, n^2 (n + 1) multiply-adds, per
+    sweep). Register tiles padded to 16, 32, 48 or 64 wide; float32 keeps S
+    exactly symmetric and sums the upper triangle, float64 runs on the
+    tensor cores (DMMA); see csrc/psd_clamp.cu.
     """
     if mode not in ("pos", "abs"):
         raise ValueError(f"psd_clamp: unknown mode {mode!r}")
@@ -349,7 +355,8 @@ def condensed_solve(factors, C, Cnext, rhs, dz):
     rhs [B, N, dz + m, r] ordered (z, lam) per knot; returns the same shape.
 
     Replaces piccolax/solver/kkt.py: condensed_solve over cr_solve. One
-    launch, one thread block per problem; see csrc/condensed_cr.cu.
+    launch, a thread-block cluster per problem and column, its size planned
+    by the launcher from B r and the card's SMs; see csrc/cr_solve.cu.
     """
     if not _cuda_or_cpu(rhs, "condensed_solve"):
         return condensed_solve_plain(factors, C, Cnext, rhs, dz)
@@ -362,7 +369,7 @@ def condensed_solve(factors, C, Cnext, rhs, dz):
     _kernels.require(Xi, "condensed_solve Xi", (B, N, dz, dz), like=C)
     _kernels.require(cr, "condensed_solve cr", (B, 3, Np, m, m), like=C)
     _kernels.require(rhs, "condensed_solve rhs", (B, N, dz + m, r), like=C)
-    lib = _kernels.load("condensed_cr")
+    lib = _kernels.load("cr_solve")
     out = torch.empty_like(rhs)
     ws = torch.empty(B * lib.px_condensed_solve_ws(N, Np, m, dz, r),
                      dtype=rhs.dtype, device=rhs.device)

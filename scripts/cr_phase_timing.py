@@ -25,6 +25,20 @@ commit: its sources with scripts/cr_timing/pr6_stamps.patch applied (one
 thread block a problem, or a partition, whose clock64() stamps split it
 into the condensation, each level's Cholesky inverses, Gl/Gr and Dn/Un
 products, and K9's SPIKE solve and interface rows).
+
+--solve times K3's condensed solve instead (csrc/cr_solve.cu alone, from
+factors made by the plain version): at the same four shapes, the solve's
+time (CUDA events), its largest relative difference from the plain solve
+and the clock64() cycles, on the first thread block of the first problem,
+of its phases: the dual right-hand side, each reduction level, the root,
+each back-substitution level and the primal recovery (each stamp taken
+after the phase's barrier, so a cluster's slowest block sets it), and
+within each phase's first chunk the cycles until its operands arrived
+(load), of its three mat-vec steps (mv1-mv3) and the rest (its other
+chunks, the next phase's staging and the barrier). With --baseline DIR (commit b34c8df's piccolax_torch/csrc:
+mkdir -p .chipcheck/pr7 && git archive b34c8df piccolax_torch/csrc |
+tar -x -C .chipcheck/pr7) it first times the one-block-a-problem solve of
+that commit through scripts/cr_timing/pr7_solve_stamps.patch.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ sys.path.insert(0, str(ROOT))
 
 CSRC = ROOT / "piccolax_torch" / "csrc"
 BASELINE_PATCH = ROOT / "scripts" / "cr_timing" / "pr6_stamps.patch"
+SOLVE_PATCH = ROOT / "scripts" / "cr_timing" / "pr7_solve_stamps.patch"
 SOURCES = ("condensed_cr", "knot")
 # K3: (B, N, dz, m, dtype): config 3, the CNOT, the batched quickstart,
 # config 1. K9: the CNOT's blocks, P = 8 and 4, both types.
@@ -53,6 +68,7 @@ K3_SHAPES = [(16, 200, 44, 40, "float32"), (1, 200, 44, 40, "float64"),
 K9_SHAPES = [(1, 200, 44, 40, "float64", 8), (1, 200, 44, 40, "float64", 4),
              (16, 200, 44, 40, "float32", 8), (16, 200, 44, 40, "float32", 4)]
 STAMPS = 8192  # int64 slots of a call's buffer (8 a launch in the current design)
+SUB = 64       # the solve's first sub-phase stamp (cr_solve.cu: kSubStamps)
 
 
 def split_patch(patch: str) -> dict[str, str]:
@@ -90,12 +106,12 @@ def nvcc() -> str:
     return found or "/usr/local/cuda/bin/nvcc"
 
 
-def build_all(src_dir: Path, out_dir: Path) -> dict[str, tuple[Path, str]]:
-    """Every source of SOURCES in src_dir, stamped, one nvcc each, all at
+def build_all(src_dir: Path, out_dir: Path, sources=SOURCES) -> dict[str, tuple[Path, str]]:
+    """Every source of `sources` in src_dir, stamped, one nvcc each, all at
     once; (library, ptxas log) by name."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in sources:
         so = out_dir / f"{name}_{os.getpid()}.so"
         cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
                "-shared", "-Xcompiler", "-fPIC", "-DPX_CR_TIMING", "-Xptxas", "-v",
@@ -378,6 +394,155 @@ def report(name, libs, baseline, cyc_note):
             print(f"    {gname}: {total} cycles ({total / cyc_note:.1f} us at "
                   f"{cyc_note:.0f}/us): {share}", flush=True)
             print("      " + ", ".join(f"{n} {c}" for n, c in ph), flush=True)
+        if sub:
+            print("      first chunk (load/mv1/mv2/mv3/rest): " + "; ".join(
+                f"{n} " + "/".join(str(x) for x in cyc) for n, cyc in sub if cyc), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# --solve: K3's condensed solve by phase
+# ---------------------------------------------------------------------------
+
+
+def solve_phase_names(Np: int) -> list[str]:
+    """The solve's stamped phases in order (stamps slot 1 onwards; slot 0
+    is the start)."""
+    L = levels(Np)
+    return (["dual"] + [f"down{lv}" for lv in range(L)] + ["root"]
+            + [f"up{lv}" for lv in reversed(range(L))] + ["primal"])
+
+
+def run_solve(lib, B, N, dz, m, dtype, baseline, reps):
+    """One shape: (ms, rel err, [(phase, cycles)], [(phase, sub-step cycles)])."""
+    import torch
+    from chip_smoke import _qd_inputs
+    from piccolax_torch.solver import kkt
+    rng = np.random.default_rng(7)
+    P, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng)
+    Xi = kkt.chol_inv_factor_plain(P).contiguous()
+    cr = kkt.condense_cr_factor_plain(Xi, C, R, Cn).contiguous()
+    Np = kkt._pow2_pad(N)
+    r = rhs.shape[-1]
+    out = torch.empty_like(rhs)
+    ws = torch.empty(B * lib.px_condensed_solve_ws(N, Np, m, dz, r), dtype=P.dtype,
+                     device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    st = torch.full((STAMPS,), -1, dtype=torch.int64, device="cuda")
+    lead = [int(dtype == "float64"), Xi.data_ptr(), C.data_ptr(), Cn.data_ptr(),
+            cr.data_ptr(), rhs.data_ptr(), out.data_ptr(), ws.data_ptr(), B, N, Np, m, dz, r]
+
+    def call(ptr):
+        rc = lib.px_condensed_solve(*lead, stream, ptr)
+        if rc:
+            raise RuntimeError(f"px_condensed_solve failed: {rc}")
+
+    call(None)
+    call(st.data_ptr())
+    torch.cuda.synchronize()
+    ref = kkt.condensed_solve_plain((Xi, cr), C, Cn, rhs, dz)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    ms = time_ms(lambda: call(None), reps)
+    s = st.cpu().numpy()
+    names = solve_phase_names(Np)
+    ph = [(n, int(s[i + 1] - s[i])) for i, n in enumerate(names) if s[i + 1] >= 0 and s[i] >= 0]
+    sub = []
+    if not baseline:          # load, mv1, mv2, mv3, rest of each phase (-1: none)
+        for i, n in enumerate(names):
+            marks = [int(s[i])] + [int(x) for x in s[SUB + 4 * i: SUB + 4 * i + 4]] + [int(s[i + 1])]
+            seen = [x for x in marks if x >= 0]
+            cyc = []
+            prev = marks[0]
+            for x in marks[1:]:
+                cyc.append(x - prev if x >= 0 else -1)
+                prev = x if x >= 0 else prev
+            sub.append((n, cyc if len(seen) > 2 else None))
+    return ms, rel, ph, sub
+
+
+def sass_hist(so: Path, key: str, top: int = 16):
+    """The most frequent opcodes of each kernel of `so` whose name holds key
+    (cuobjdump -sass)."""
+    tool = subprocess.run(["which", "cuobjdump"], capture_output=True, text=True).stdout.strip()
+    text = subprocess.run([tool or "/usr/local/cuda/bin/cuobjdump", "-sass", str(so)],
+                          capture_output=True, text=True).stdout
+    out = []
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        name = block.splitlines()[0].strip()
+        if key not in name:
+            continue
+        hist = {}
+        for line in block.splitlines():
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m:
+                hist[m.group(1)] = hist.get(m.group(1), 0) + 1
+        out.append((name, f"{sum(hist.values())} instructions; " + " ".join(
+            f"{o}:{k}" for o, k in sorted(hist.items(), key=lambda kv: -kv[1])[:top])))
+    return out
+
+
+def report_solve(name, src_dir, out_dir, baseline, cyc_per_us):
+    t0 = time.perf_counter()
+    src = "condensed_cr" if baseline else "cr_solve"
+    libs = build_all(src_dir, out_dir, (src,))
+    print(f"== {name}: built in {time.perf_counter() - t0:.1f} s", flush=True)
+    so, log = libs[src]
+    for kern, regs, spill, frame in ptxas_summary(log):
+        if "solve" in kern:
+            print(f"  ptxas: {kern}: {regs} registers, {spill} bytes spilled, "
+                  f"{frame} bytes stack frame", flush=True)
+    for fn, top in sass_hist(so, "condensed_solve"):
+        print(f"  sass {fn}: {top}", flush=True)
+    lib = ctypes.CDLL(str(so))
+    I_, P_, L_ = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    lib.px_condensed_solve.argtypes = [I_] + [P_] * 7 + [I_] * 6 + [P_, P_]
+    lib.px_condensed_solve_ws.argtypes = [I_] * 5
+    lib.px_condensed_solve_ws.restype = L_
+    if not baseline:
+        lib.px_solve_config.argtypes = [P_]
+        lib.px_solve_config.restype = None
+    if not baseline:
+        import torch
+        lib.px_solve_mv_probe.argtypes = [I_, P_, I_, I_, P_]
+        for dtype, m in (("float64", 40), ("float32", 40), ("float64", 13)):
+            M = torch.randn(m, m, dtype=getattr(torch, dtype), device="cuda")
+            o = torch.zeros(16, dtype=torch.int64, device="cuda")
+            reps = 64
+            if lib.px_solve_mv_probe(int(dtype == "float64"), M.data_ptr(), m, reps, o.data_ptr()):
+                raise RuntimeError("px_solve_mv_probe failed")
+            v = o.cpu().tolist()
+            print(f"  probe {dtype} m={m}: a block mat-vec and barrier {v[0] / reps:.0f} cycles, "
+                  f"a barrier {v[1] / reps:.0f}, a {m}-term dot on every thread "
+                  f"{v[2] / reps:.0f}, on {m} threads {v[3] / reps:.0f}, a block mat-vec "
+                  f"without barrier {v[4] / reps:.0f}", flush=True)
+        sass = subprocess.run([(subprocess.run(["which", "cuobjdump"], capture_output=True,
+                                               text=True).stdout.strip()
+                                or "/usr/local/cuda/bin/cuobjdump"), "-sass", str(so)],
+                              capture_output=True, text=True).stdout
+        blocks = [b for b in re.split(r"\n(?=\s*Function : )", sass) if "mv_probe_kernelIdE" in b]
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "mv_probe_sass.txt").write_text("\n".join(blocks))
+    for B, N, dz, m, dtype in K3_SHAPES:
+        ms, rel, ph, sub = run_solve(lib, B, N, dz, m, dtype, baseline,
+                                     20 if B > 1 and dtype == "float32" else 10)
+        if not baseline:
+            cfg = (ctypes.c_longlong * 3)()
+            lib.px_solve_config(cfg)
+            cl_note = f" [launched: cluster {cfg[2]}, {cfg[0] // 1024} KB shared a block, " \
+                      f"{cfg[1]} clusters resident]"
+        else:
+            cl_note = ""
+        total = sum(c for _, c in ph)
+        by = {"dual": 0, "down": 0, "root": 0, "up": 0, "primal": 0}
+        for n, c in ph:
+            by[n.rstrip("0123456789")] += c
+        share = ", ".join(f"{k} {v} ({100 * v / max(total, 1):.1f}%)" for k, v in by.items())
+        print(f"  K3 solve B={B},N={N},dz={dz},m={m} {dtype}: {ms:.4f} ms per call, "
+              f"rel err vs plain {rel:.2e}{cl_note}; first block {total} cycles "
+              f"({total / cyc_per_us:.1f} us at {cyc_per_us:.0f}/us): {share}", flush=True)
+        print("      " + ", ".join(f"{n} {c}" for n, c in ph), flush=True)
+        if sub:
+            print("      first chunk (load/mv1/mv2/mv3/rest): " + "; ".join(
+                f"{n} " + "/".join(str(x) for x in cyc) for n, cyc in sub if cyc), flush=True)
 
 
 def main():
@@ -387,6 +552,10 @@ def main():
                          "to time first with its stamps patch")
     ap.add_argument("--only-baseline", action="store_true",
                     help="time the baseline alone")
+
+    ap.add_argument("--solve", action="store_true",
+                    help="time K3's condensed solve by phase (--baseline: commit "
+                         "b34c8df's sources through pr7_solve_stamps.patch)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -395,6 +564,27 @@ def main():
     card = card_line()
     print(card, flush=True)
     out_dir = ROOT / "piccolax_torch" / "_build" / "cr_timing"
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout.strip()
+    cyc_per_us = float(clk.splitlines()[0]) if clk else 1980.0
+    if args.solve:
+        if args.baseline:
+            bdir = out_dir / "solve_baseline_src"
+            bdir.mkdir(parents=True, exist_ok=True)
+            patches = split_patch(SOLVE_PATCH.read_text())
+            for f in args.baseline.iterdir():
+                if f.suffix in (".cu", ".cuh"):
+                    text = f.read_text()
+                    if f.name in patches:
+                        text = apply_patch(text, patches[f.name])
+                    (bdir / f.name).write_text(text)
+            report_solve("baseline solve (b34c8df with pr7_solve_stamps.patch)", bdir,
+                         out_dir / "solve_baseline", True, cyc_per_us)
+        if not args.only_baseline:
+            report_solve("piccolax_torch/csrc solve", CSRC, out_dir / "solve_current", False,
+                         cyc_per_us)
+        print(card, flush=True)
+        return 0
     todo = []
     if args.baseline:
         bdir = out_dir / "baseline_src"
@@ -409,9 +599,6 @@ def main():
         todo.append(("baseline (1f359b2 with pr6_stamps.patch)", bdir, out_dir / "baseline", True))
     if not args.only_baseline:
         todo.append(("piccolax_torch/csrc", CSRC, out_dir / "current", False))
-    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True).stdout.strip()
-    cyc_per_us = float(clk.splitlines()[0]) if clk else 1980.0
     for name, src, out, base in todo:
         t0 = time.perf_counter()
         libs = build_all(src, out)

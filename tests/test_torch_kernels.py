@@ -120,38 +120,59 @@ def test_chol_inv_factor_float32_zero_diagonal_floor():
 
 @pytest.mark.parametrize("mode", ["pos", "abs"])
 @pytest.mark.parametrize("iters,floor_rel", [(32, 1e-6), (15, 3e-3)])
-def test_psd_clamp_matches_jax(mode, iters, floor_rel):
+@pytest.mark.parametrize("n", [14, 15, 44])
+def test_psd_clamp_matches_jax(mode, iters, floor_rel, n):
+    """Config 1's blocks (14), the quickstart's (15) and the CNOT's (44)."""
     rng = np.random.default_rng(iters)
-    W = rng.standard_normal((5, 14, 14)) * 3.0
+    W = rng.standard_normal((5, n, n)) * 3.0
     W = 0.5 * (W + np.swapaxes(W, -1, -2))
     ref = np.asarray(jkkt.psd_clamp(jnp.asarray(W), floor_rel, iters, mode))
     got = pkkt.psd_clamp(torch.as_tensor(W), floor_rel, iters, mode).numpy()
     assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-11
 
 
+@pytest.mark.parametrize("mode", ["pos", "abs"])
+@pytest.mark.parametrize("n", [14, 15, 44])
+def test_psd_clamp_nan_block_matches_jax(mode, n):
+    """A NaN in one block makes that block, and no other, all NaN, as in
+    JAX (the card's kernels are held to the same mask)."""
+    rng = np.random.default_rng(n)
+    W = rng.standard_normal((4, n, n))
+    W = 0.5 * (W + np.swapaxes(W, -1, -2))
+    W[2, n // 2, n - 1] = np.nan
+    ref = np.asarray(jkkt.psd_clamp(jnp.asarray(W), 3e-3, 15, mode))
+    got = pkkt.psd_clamp(torch.as_tensor(W), 3e-3, 15, mode).numpy()
+    assert np.isnan(ref[2]).all() and np.isfinite(ref[[0, 1, 3]]).all()
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    ok = np.isfinite(ref)
+    assert np.max(np.abs(got[ok] - ref[ok])) / np.max(np.abs(ref[ok])) < 1e-11
+
+
 # -- K3: condensed KKT by cyclic reduction -----------------------------------
 
 
-@pytest.mark.parametrize("N,m,dz", [pytest.param(11, 12, 14, id="11"),
-                                    pytest.param(16, 12, 14, id="16"),
-                                    pytest.param(13, 40, 44, id="13-40-44")])
-def test_condensed_factor_and_solve_match_jax(N, m, dz):
-    """Config 1's blocks (dz = 14, m = 12) and the CNOT's (44, 40)."""
+@pytest.mark.parametrize("N,m,dz,r", [pytest.param(11, 12, 14, 1, id="11"),
+                                      pytest.param(16, 12, 14, 1, id="16"),
+                                      pytest.param(13, 40, 44, 1, id="13-40-44"),
+                                      pytest.param(2, 12, 14, 1, id="2"),
+                                      pytest.param(16, 12, 14, 3, id="16-r3")])
+def test_condensed_factor_and_solve_match_jax(N, m, dz, r):
+    """Config 1's blocks (dz = 14, m = 12) and the CNOT's (44, 40); N = 2
+    and N short of a power of two; r columns."""
     rng = np.random.default_rng(N)
     P = _spd(rng, (N,), dz, shift=1.0)
     C = rng.standard_normal((N, m, dz))
     Cn = rng.standard_normal((N - 1, m, dz))
     R = np.full((N, m), 1e-3)
     R[-1] += 1.0
-    rhs = rng.standard_normal((N, dz + m))
+    rhs = rng.standard_normal((N, dz + m, r))
     jf = jax.jit(jkkt.condensed_factor)(*(jnp.asarray(x) for x in (P, C, R, Cn)))
     ref = np.asarray(jax.jit(jkkt.condensed_solve, static_argnums=4)(
         jf, jnp.asarray(C), jnp.asarray(Cn), jnp.asarray(rhs), dz))
     T = [torch.as_tensor(x)[None] for x in (P, C, R, Cn)]
     pf = pkkt.condensed_factor(*T)
-    got = pkkt.condensed_solve(pf, T[1], T[3],
-                               torch.as_tensor(rhs)[None, ..., None], dz)
-    assert _rel(got[0, ..., 0].numpy(), ref) < 1e-10
+    got = pkkt.condensed_solve(pf, T[1], T[3], torch.as_tensor(rhs)[None], dz)
+    assert _rel(got[0].numpy(), ref) < 1e-10
     # the factor itself: knot factors and every level's Cholesky inverse
     assert _rel(pf[0][0].numpy(), jf[0]) < 1e-10
     levels, Xi_root = jf[1]
