@@ -13,7 +13,15 @@ fatal on failure:
    at the config-1 shapes in float32 and at the quickstart shapes in
    float64, K5 (Pade-13 expm) on complex128 and complex64 rollouts with
    every squaring count 0..16, K6 (fixed-order Pade expm, orders 3-9) at
-   the Pade quickstart's residual and derivative shapes, K7 (the qd KKT
+   the Pade quickstart's residual shapes and at 12 x 12, the derivative
+   form of K4 and K6 (one launch: r(A) with its first and second
+   derivatives along d directions, no augmentation) at every path's
+   (w, d, order, s, dtype) on the paths' own systems, against its plain
+   version (float64 to 1e-9 for K4, 1e-12 for K6; float32 against float64,
+   2x rule) and against the dense kernel on the augmentations, then Pade
+   orders 3-9 and both Taylor orders at s 0 and 2, a (w, d) sweep up to the
+   width cap of 16 whose larger d split a knot's pairs over several thread
+   blocks, and the value form at every width 1-32, K7 (the qd KKT
    factor and solve, with one indefinite block whose NaNs must stay in
    its problem) at config 1's, the quickstart's (B = 256 and 1) and the
    CNOT's shapes, at its caps (64 in float32, 48 in float64) and at N = 1
@@ -48,7 +56,7 @@ fatal on failure:
 
 Phase 3 also checks K1-K3 at config 3's shapes ([16, 200, 44, 44], m = 40
 in float32; B = 1 in float64), K4 and K6 (Pade order 7) at the CNOT's 8 x 8
-residual sweeps and 24 x 24 derivative augmentations (both dtypes) and K9
+residual sweeps (both dtypes) and K9
 (the knot-partitioned factor and solve at the same shapes with P = 4 and
 8, and the standalone and batched block-tridiagonal solves at
 [B, 48, 5, 5]). K3 and K9 are held as K7 is: float64 to 1e-9 of the plain
@@ -65,8 +73,9 @@ whose mask must equal the plain version's and a block one ulp short of
 symmetric, which must come out all NaN (the kernels take exactly
 symmetric blocks); K3's solve at B = 1, 2, 12, 16, 24, 64 and 256 (every
 cluster size it launches with) and N = 13 and 2, one launch a call. The
-paths print K4's and K6's launches by block width (residual sweeps against
-derivative augmentations).
+paths print K4's and K6's launches by block width and form (residual
+sweeps, derivative launches), and fail if the value form ran on a 12- or
+24-wide augmentation.
 
 Each of 4-12 resets every launch counter just before it and reads them
 just after, and fails if a kernel of its path was not launched or a
@@ -97,6 +106,9 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 SECTOR = 32  # bytes, the least a read from device memory moves
 
 QS_N, QS_T, QS_B = 100, 10.0, 256
+# config 3: bench.py's config-3 options (bench.py:239-244)
+C3_N, C3_T, C3_B = 200, 50.0, 16
+KNOT_PARTS = (4, 8)
 
 
 def _check(ok, message):
@@ -179,9 +191,9 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
                   variant=None):
     """Phase 3, K1-K4: every kernel against its plain version at the
     shapes of a path: B problems of N knots, dz columns, m rows; K4 on the
-    line-search residual sweep and on the derivative augmentations (unless
-    k4 is False). clamp: K2's (sweeps, floor), the IPM's for the dtype
-    unless given; variant: the record's key for the shapes."""
+    line-search residual sweep (unless k4 is False; its derivative form:
+    check_expm_derivatives). clamp: K2's (sweeps, floor), the IPM's for the
+    dtype unless given; variant: the record's key for the shapes."""
     import torch
     from piccolax_torch.ops import expm as ex
     from piccolax_torch.quantum.systems import QuantumSystem
@@ -291,9 +303,9 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
         return
 
     # -- K4: expm on the line-search residual sweep [B * cand * ls, N-1, 4, 4]
-    # and on the derivative augmentations [B, N-1, nv^2, 12, 12]
+    # (the derivative form: check_expm_derivatives)
     order = 12 if f64 else 8
-    cand_ls, nv, sq = (3 * 8, 3, 1) if f64 else (2 * 6, 2, 0)
+    cand_ls, sq = (3 * 8, 1) if f64 else (2 * 6, 0)
     sysv = QuantumSystem(0.5 * PAULIS["Z"] if f64 else np.zeros((2, 2)),
                          [PAULIS["X"], PAULIS["Y"]] if f64 else
                          [PAULIS["X"] / 2, PAULIS["Y"] / 2],
@@ -305,41 +317,24 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
     ref = ex.expm_taylor_fixed_plain(Aexp, order, sq)
     err, rel = _rel_err(got, ref)
     _check(rel < tol["K4"], f"expm_taylor_fixed ({dtype}) rel err {rel}")
-    Aaug = t(0.1 * rng.standard_normal((B, N - 1, nv * nv, 12, 12)))
-    e12, rel12 = _rel_err(ex.expm_taylor_fixed(Aaug, order, sq + 1),
-                          ex.expm_taylor_fixed_plain(Aaug, order, sq + 1))
-    _check(rel12 < tol["K4"], f"expm_taylor_fixed 12x12 ({dtype}) rel err {rel12}")
-    if f64:
-        # the batched quickstart's derivative augmentations: 3 x 4 wide for
-        # its three derivative directions (two drives and dt), nv^2 a knot
-        Ma = Aaug.numel() // 144
-        record("expm_taylor_fixed", "piccolax_torch/csrc/expm_taylor.cu",
-               "piccolax/ops/expm.py:143", e12,
-               _time_ms(lambda: ex.expm_taylor_fixed(Aaug, order, sq + 1), reps),
-               _time_ms(lambda: ex.expm_taylor_fixed_plain(Aaug, order, sq + 1), reps),
-               bound(Ma * _taylor_flops(12, order, sq + 1), 2 * Ma * 144 * es),
-               _time_ms(lambda: torch.linalg.matrix_exp(Aaug), reps),
-               f"{tol['K4']:.0e} relative",
-               shape=f"derivative augmentations {list(Aaug.shape)} {dtype}, order "
-                     f"{order}, s={sq + 1}", variant="float64_quickstart_12x12")
     Mx = Aexp.numel() // 16
-    record("expm_taylor_fixed", "piccolax_torch/csrc/expm_taylor.cu",
-           "piccolax/ops/expm.py:143", max(err, e12),
+    record("expm_taylor_fixed", "piccolax_torch/csrc/expm_fixed.cu",
+           "piccolax/ops/expm.py:143", err,
            _time_ms(lambda: ex.expm_taylor_fixed(Aexp, order, sq), reps),
            _time_ms(lambda: ex.expm_taylor_fixed_plain(Aexp, order, sq), reps),
            bound(Mx * _taylor_flops(4, order, sq), 2 * Mx * 16 * es),
            _time_ms(lambda: torch.linalg.matrix_exp(Aexp), reps),
-           f"{tol['K4']:.0e} relative (4 x 4 timed; 12 x 12 checked)",
+           f"{tol['K4']:.0e} relative",
            shape=f"[{B * cand_ls},{N - 1},4,4] {dtype}, order {order}, s={sq}")
 
 
 def check_expm_cnot(B, cand_ls, dtype, record, reps=5, pade_order=None):
-    """Phase 3, K4 (or K6 with pade_order) at the CNOT's shapes and at its
-    integrator's order and squarings: the line-search residual sweep
-    [B * cand_ls, N-1, 8, 8] (cand_ls = directions x ls_iters) and the
-    derivative augmentations [B, N-1, 16, 24, 24] (4 drives, fixed dt),
-    each against the plain version at the kernel's tolerance (K4: 1e-9
-    relative in float64, 1e-5 in float32; K6: 1e-12 and 1e-5)."""
+    """Phase 3, K4 (or K6 with pade_order) at the CNOT's line-search
+    residual sweep [B * cand_ls, N-1, 8, 8] (cand_ls = directions x
+    ls_iters), at its integrator's order and squarings, against the plain
+    version at the kernel's tolerance (K4: 1e-9 relative in float64, 1e-5
+    in float32; K6: 1e-12 and 1e-5). (The derivative launches:
+    check_expm_derivatives.)"""
     import torch
     import piccolax_torch as pt
     from piccolax_torch.ops import expm as ex
@@ -354,11 +349,11 @@ def check_expm_cnot(B, cand_ls, dtype, record, reps=5, pade_order=None):
     intg = prob.integrators[0]
     sysv = prob.qtraj.system.solver_view().to(dev, dt_)
     if pade_order is None:
-        name, src, line = "expm_taylor_fixed", "expm_taylor.cu", 143
+        name, line = "expm_taylor_fixed", 143
         fn, plain = ex.expm_taylor_fixed, ex.expm_taylor_fixed_plain
         order, tol, flops = (12 if f64 else 8), (1e-9 if f64 else 1e-5), _taylor_flops
     else:
-        name, src, line = "expm_pade_fixed", "expm_pade_fixed.cu", 105
+        name, line = "expm_pade_fixed", 105
         fn, plain = ex.expm_pade_fixed, ex.expm_pade_fixed_plain
         order, tol, flops = pade_order, (1e-12 if f64 else 1e-5), _pade_fixed_flops
     sq = intg.squarings
@@ -366,24 +361,205 @@ def check_expm_cnot(B, cand_ls, dtype, record, reps=5, pade_order=None):
     bound_u = prob.qtraj.system.drive_bounds[0][1]
     u = torch.as_tensor(rng.uniform(-bound_u, bound_u, (B * cand_ls, C3_N - 1, 4)),
                         dtype=dt_, device=dev)
-    A_res = (dt * sysv.G(u)).contiguous()
-    A = dt * sysv.G(u[:B])
-    E = (dt * sysv.G_drives).expand(*A.shape[:-2], *sysv.G_drives.shape)
-    A_aug = ex.derivative_augmentations(A, E)
-    for key, X in (("residual sweep", A_res), ("derivative augmentations", A_aug)):
-        n = X.shape[-1]
-        err, rel = _rel_err(fn(X, order, sq), plain(X, order, sq))
-        _check(rel < tol, f"{name} CNOT {key} {tuple(X.shape)} ({dtype}) "
-               f"rel err {rel:.3e}")
-        Mx = X.numel() // (n * n)
-        record(name, f"piccolax_torch/csrc/{src}", f"piccolax/ops/expm.py:{line}", err,
-               _time_ms(lambda: fn(X, order, sq), reps),
-               _time_ms(lambda: plain(X, order, sq), reps),
-               _bound(Mx * flops(n, order, sq), 2 * Mx * n * n * es, dtype),
-               _time_ms(lambda: torch.linalg.matrix_exp(X), reps),
-               f"{tol:.0e} relative",
-               shape=f"CNOT {key} {list(X.shape)} {dtype}, order {order}, s={sq}",
-               variant=f"config3_{dtype}_{n}x{n}")
+    X = (dt * sysv.G(u)).contiguous()
+    n = X.shape[-1]
+    err, rel = _rel_err(fn(X, order, sq), plain(X, order, sq))
+    _check(rel < tol, f"{name} CNOT residual sweep {tuple(X.shape)} ({dtype}) "
+           f"rel err {rel:.3e}")
+    Mx = X.numel() // (n * n)
+    record(name, "piccolax_torch/csrc/expm_fixed.cu", f"piccolax/ops/expm.py:{line}", err,
+           _time_ms(lambda: fn(X, order, sq), reps),
+           _time_ms(lambda: plain(X, order, sq), reps),
+           _bound(Mx * flops(n, order, sq), 2 * Mx * n * n * es, dtype),
+           _time_ms(lambda: torch.linalg.matrix_exp(X), reps),
+           f"{tol:.0e} relative",
+           shape=f"CNOT residual sweep {list(X.shape)} {dtype}, order {order}, s={sq}",
+           variant=f"config3_{dtype}_{n}x{n}")
+
+
+def _path_directions(sysv, u, dt, dt_free):
+    """A = dt G(u) [..., w, w] and the integrator's directions E [..., d, w, w]:
+    dt G_k for each drive and, with a free timestep, G(u)."""
+    import torch
+    G = sysv.G(u)
+    E = (dt * sysv.G_drives).expand(*G.shape[:-2], *sysv.G_drives.shape)
+    if dt_free:
+        E = torch.cat([E, G[..., None, :, :]], dim=-3)
+    return (dt * G).contiguous(), E.contiguous()
+
+
+def _structured_flops(w, d, order, sq):
+    """Real operations of the derivative form on one knot, as the kernel
+    does them: each step of the approximant (as _taylor_flops and
+    _pade_fixed_flops count its products) takes 1 + 2d + 4 d (d + 1) / 2
+    w x w block products (D, F_k, the pairs' S with four terms each) of w^3
+    multiply-adds, and its elementwise work on every block of (D, F, S)."""
+    if order == "taylor" or order in (8, 12):
+        o = order if order in (8, 12) else None
+        n_mm = (4 if o == 8 else 5) + sq
+        elem = 17 if o == 8 else 24
+    else:
+        ev = (order - 1) // 2
+        n_mm = ev + 14 + sq
+        elem = 9 + 4 * ev
+    blocks = 1 + d + d * (d + 1) // 2
+    return n_mm * (1 + 2 * d + 2 * d * (d + 1)) * 2 * w ** 3 + elem * blocks * w * w
+
+
+def _deriv_errors(got, ref):
+    """The largest relative error of (Phi, dPhi, D2) against ref's, each
+    over its own largest entry."""
+    return max(_rel_err(g, r)[1] for g, r in zip(got, ref))
+
+
+def _check_derivative_form(A, E, order, sq, label, tol64):
+    """The derivative kernel on A, E: float64 against its plain version to
+    tol64 relative; float32 against the plain version in float64 (the same
+    approximant: Taylor order 8), at most twice the plain float32 version's
+    error (or 1e-6). Where 3w <= 32, also against the dense kernel on the
+    augmentations M: float64 to tol64, float32 to 1e-4 relative. Returns
+    the error against the plain version (float32: against float64)."""
+    import torch
+    from piccolax_torch.ops import expm as ex
+    got = ex.expm_fixed_derivatives(A, E, order, sq)
+    torch.cuda.synchronize()
+    if A.dtype == torch.float64:
+        err = _deriv_errors(got, ex.expm_fixed_derivatives_plain(A, E, order, sq))
+        _check(err < tol64, f"derivative form {label}: rel err {err:.3e} (tol {tol64:.0e})")
+    else:
+        ref = ex.expm_fixed_derivatives_plain(A.double(), E.double(), order, sq,
+                                              taylor_order=8)
+        err = _deriv_errors(got, ref)
+        ep = _deriv_errors(ex.expm_fixed_derivatives_plain(A, E, order, sq), ref)
+        _check(err <= max(2 * ep, 1e-6), f"derivative form {label} float32: rel err vs "
+               f"float64 {err:.3e}, over twice the plain float32 version's {ep:.3e}")
+    if 3 * A.shape[-1] <= 32:
+        errd = _deriv_errors(got, ex.expm_fixed_derivatives_dense(A, E, order, sq))
+        lim = tol64 if A.dtype == torch.float64 else 1e-4
+        _check(errd < lim, f"derivative form {label}: rel diff vs the dense kernel on M "
+               f"{errd:.3e} (tol {lim:.0e})")
+    return err
+
+
+# The paths' derivative launches: (label, B, N, dtype, order): the problem
+# gives the system, the squaring count and whether dt is a direction.
+DERIV_PATHS = [("config1", 256, 50, "float32", "taylor"),
+               ("quickstart", 1, QS_N, "float64", "taylor"),
+               ("quickstart_b256", QS_B, QS_N, "float64", "taylor"),
+               ("quickstart_pade7", 1, QS_N, "float64", 7),
+               ("quickstart_pade7_b256", QS_B, QS_N, "float64", 7),
+               ("config3", C3_B, C3_N, "float32", "taylor"),
+               ("cnot", 1, C3_N, "float64", "taylor")]
+# directions' pairs: (w, d) up to the width cap, single and several tiles a
+# knot (4 x 12, 8 x 8 and 16 x 5 split their pairs over thread blocks)
+DERIV_SWEEP = [(1, 1), (2, 3), (3, 2), (5, 4), (6, 3), (7, 2), (9, 2), (10, 5), (12, 3),
+               (16, 4), (16, 5), (4, 12), (8, 8)]
+
+
+def _path_problem(label, N, order):
+    """The problem of a derivative path: its system and its integrator."""
+    import piccolax_torch as pt
+    if label.startswith("config1"):
+        prob = pt.sx_gate_problem(N=N, T=10.0, device="cuda")
+        return prob.qtraj.system, prob.integrators[0], 10.0 / (N - 1)
+    if label.startswith("quickstart"):
+        sysq, _, qcp = _quickstart_problem(pade_order=order)
+        return sysq, qcp.integrators[0], 0.1
+    prob = pt.cnot_problem(N=N, T=C3_T, device="cuda")
+    return prob.qtraj.system, prob.integrators[0], C3_T / (N - 1)
+
+
+def check_expm_derivatives(record, reps=5):
+    """Phase 3, the derivative form of K4 and K6 (one launch: r(A), its
+    first derivatives along d directions and the symmetrised second ones):
+    at every path's (w, d, order, s, dtype) on A = dt G(u) and the
+    integrator's directions from the path's own system (u uniform in the
+    drive bounds), float64 against the plain version to 1e-9 (K4) and
+    1e-12 (K6) relative, float32 against the plain version in float64 (2x
+    rule), and against the dense kernel on the augmentations; then Pade
+    orders 3-9 and both Taylor orders at s 0 and 2, a sweep of (w, d) up
+    to the width cap of 16 with knots whose pairs span several thread
+    blocks, a refused w = 17, and the value form at every width 1-32."""
+    import torch
+    from piccolax_torch.ops import expm as ex
+
+    rng = np.random.default_rng(17)
+    dev = torch.device("cuda")
+    for label, B, N, dtype, order in DERIV_PATHS:
+        dt_ = getattr(torch, dtype)
+        f64 = dtype == "float64"
+        es = 8 if f64 else 4
+        system, intg, dt = _path_problem(label, N, order)
+        sq = intg.squarings
+        sysv = system.solver_view().to(dev, dt_)
+        bounds = np.asarray(system.drive_bounds, dtype=float)
+        u = torch.as_tensor(rng.uniform(bounds[:, 0], bounds[:, 1],
+                                        (B, N - 1, len(bounds))), dtype=dt_, device=dev)
+        dt_free = label.startswith("quickstart")
+        A, E = _path_directions(sysv, u, dt, dt_free)
+        w, d = A.shape[-1], E.shape[-3]
+        tol = 1e-9 if order == "taylor" else 1e-12
+        err = _check_derivative_form(A, E, order, sq, label, tol)
+        name = "expm_taylor_fixed_derivatives" if order == "taylor" else \
+            "expm_pade_fixed_derivatives"
+        M = B * (N - 1)
+        flops = M * _structured_flops(w, d, (12 if f64 else 8) if order == "taylor" else order,
+                                      sq)
+        nbytes = M * es * w * w * (2 + 2 * d + d * d)
+        Maug = ex.derivative_augmentations(A, E)
+        record(name, "piccolax_torch/csrc/expm_fixed.cu",
+               "piccolax/ops/expm.py:" + ("143" if order == "taylor" else "105"), err,
+               _time_ms(lambda: ex.expm_fixed_derivatives(A, E, order, sq), reps),
+               _time_ms(lambda: ex.expm_fixed_derivatives_plain(A, E, order, sq), reps),
+               _bound(flops, nbytes, dtype),
+               _time_ms(lambda: torch.linalg.matrix_exp(Maug), reps),
+               f"{tol:.0e} relative (float64), float32: 2x the plain float32 version's "
+               f"error vs float64; dense kernel on M agrees; library: matrix_exp on M",
+               shape=f"{label} A [{B},{N - 1},{w},{w}], E d={d} {dtype}, order {order}, "
+                     f"s={sq}", variant=label)
+        del Maug
+
+    def inside(lead, w, d, order, sq, dtype):
+        radius = ex.TAYLOR_THETA if order == "taylor" else ex.pade_radius(order)
+        A = rng.standard_normal((*lead, w, w))
+        A *= 0.5 * radius * 2.0 ** sq / np.abs(A).sum(-1).max(-1)[..., None, None]
+        E = 0.3 * radius * 2.0 ** sq * rng.standard_normal((*lead, d, w, w)) / w
+        t = lambda x: torch.as_tensor(x, dtype=getattr(torch, dtype), device=dev)  # noqa: E731
+        return t(A), t(E)
+
+    errs = []
+    for order in ("taylor", 3, 5, 7, 9):
+        for sq in (0, 2):
+            for dtype in ("float64", "float32"):
+                A, E = inside((37,), 4, 3, order, sq, dtype)
+                tol = 1e-9 if order == "taylor" else 1e-12
+                errs.append(_check_derivative_form(A, E, order, sq,
+                                                   f"order {order} s={sq} {dtype}", tol))
+    for w, d in DERIV_SWEEP:
+        for order, dtype in (("taylor", "float64"), (7, "float64"), ("taylor", "float32")):
+            A, E = inside((23,), w, d, order, 1, dtype)
+            tol = 1e-9 if order == "taylor" else 1e-12
+            errs.append(_check_derivative_form(A, E, order, 1,
+                                               f"w={w} d={d} order {order} {dtype}", tol))
+    A, E = inside((2,), ex.MAX_DERIVATIVE_WIDTH + 1, 2, "taylor", 0, "float64")
+    try:
+        ex.expm_fixed_derivatives(A, E, "taylor", 0)
+        _check(False, "expm_fixed_derivatives took a block wider than its cap")
+    except ValueError:
+        pass
+    for n in range(1, 33):
+        for dtype, tol in (("float64", 1e-12), ("float32", 1e-5)):
+            A, _ = inside((29,), n, 1, 7, 1, dtype)
+            for fn, plain, o in ((ex.expm_taylor_fixed, ex.expm_taylor_fixed_plain, None),
+                                 (ex.expm_pade_fixed, ex.expm_pade_fixed_plain, 7)):
+                rel = _rel_err(fn(A, o, 1) if o else fn(A, None, 1),
+                               plain(A, o, 1) if o else plain(A, None, 1))[1]
+                _check(rel < (1e-9 if o is None and dtype == "float64" else tol),
+                       f"{fn.__name__} n={n} {dtype}: rel err {rel:.3e}")
+    print(f"derivative form: orders (Taylor, Pade 3-9) x s (0, 2) x both types at w=4 "
+          f"d=3, (w, d) sweep {DERIV_SWEEP} in float64 (Taylor, Pade 7) and float32, "
+          f"max rel err {max(errs):.3e}; w={ex.MAX_DERIVATIVE_WIDTH + 1} refused; value "
+          f"form at n = 1..32 (K4, K6, both types) within tolerance", flush=True)
 
 
 def _taylor_flops(n, order, sq):
@@ -527,7 +703,7 @@ def check_expm_pade_fixed(record, reps=20):
             else:
                 sub[key] = row
     key, row = main
-    record("expm_pade_fixed", "piccolax_torch/csrc/expm_pade_fixed.cu",
+    record("expm_pade_fixed", "piccolax_torch/csrc/expm_fixed.cu",
            "piccolax/ops/expm.py:105", row["max_abs_err"], row["ms"],
            row["plain_ms"], (row["bound_ms"], row["bound_by"]), row["library_ms"],
            "1e-12 (f64) / 1e-5 (f32) relative, orders 3-9, s 0 and 2",
@@ -1188,7 +1364,9 @@ def _library_chol_inv(A):
 
 def _read_launches(path, required, forbidden=()):
     """The launch counts of a path's run: every kernel of `required` was
-    launched, none of `forbidden` (the path must not fall back)."""
+    launched, none of `forbidden` (the path must not fall back), and K4's
+    and K6's value form never on a 12- or 24-wide block (the dense
+    augmentations: the derivative form carries them)."""
     from piccolax_torch import _kernels
     launches = dict(_kernels.LAUNCHES)
     print(f"{path} launches: {json.dumps(launches)}; K4 and K6 by block width: "
@@ -1197,12 +1375,20 @@ def _read_launches(path, required, forbidden=()):
         _check(launches[k] > 0, f"kernel {k} was not launched on the {path} path")
     for k in forbidden:
         _check(launches[k] == 0, f"kernel {k} was launched on the {path} path")
+    for k in ("expm_taylor_fixed", "expm_pade_fixed"):
+        for n in (12, 24):
+            _check(_kernels.WIDTHS.get(f"{k} {n}", 0) == 0,
+                   f"{k} ran on {n}-wide augmentations on the {path} path")
     return launches
 
 
 # the KKT kernels of each backend (K1 factors the knot blocks of "cr")
 _KKT_KERNELS = {"cr": ["chol_inv_factor", "condensed_factor", "condensed_solve"],
                 "qd": ["qd_factor", "qd_solve"]}
+# K4 and K6, each in its value form (residuals, line search) and its
+# derivative form (one launch a derivatives evaluation)
+TAYLOR_KERNELS = ["expm_taylor_fixed", "expm_taylor_fixed_derivatives"]
+PADE_KERNELS = ["expm_pade_fixed", "expm_pade_fixed_derivatives"]
 
 
 def config1(B, N, T, kkt_backend="cr"):
@@ -1238,8 +1424,10 @@ def config1(B, N, T, kkt_backend="cr"):
     iters = int(st.it.max().item())
     label = "config-1" if kkt_backend == "cr" else f"config-1-{kkt_backend}"
     launches = _read_launches(label, ["psd_clamp", "expm_taylor_fixed",
+                                      "expm_taylor_fixed_derivatives",
                                       *_KKT_KERNELS[kkt_backend]],
-                              _KKT_KERNELS["qd" if kkt_backend == "cr" else "cr"])
+                              [*_KKT_KERNELS["qd" if kkt_backend == "cr" else "cr"],
+                               *PADE_KERNELS])
     its = st.it.cpu().numpy()
     print(f"{label}: B={B} N={N} f32, kkt_backend {kkt_backend}, {iters} "
           f"iterations (max; mean {its.mean():.2f}, min {its.min()}), "
@@ -1291,12 +1479,11 @@ def _quickstart_problem(device="cuda", pade_order="taylor"):
 # it must not (no fallback to the other path's kernels).
 QS_PATHS = {
     ("taylor", "cr"): (["chol_inv_factor", "psd_clamp", "condensed_factor",
-                        "condensed_solve", "expm_taylor_fixed", "expm_pade13"],
-                       ["expm_pade_fixed", "qd_factor", "qd_solve"]),
-    (7, "qd"): (["psd_clamp", "expm_pade_fixed", "qd_factor", "qd_solve",
-                 "expm_pade13"],
+                        "condensed_solve", *TAYLOR_KERNELS, "expm_pade13"],
+                       [*PADE_KERNELS, "qd_factor", "qd_solve"]),
+    (7, "qd"): (["psd_clamp", *PADE_KERNELS, "qd_factor", "qd_solve", "expm_pade13"],
                 ["chol_inv_factor", "condensed_factor", "condensed_solve",
-                 "expm_taylor_fixed"]),
+                 *TAYLOR_KERNELS]),
 }
 
 
@@ -1405,9 +1592,6 @@ def quickstart_batched(gate, pade_order="taylor", kkt_backend="cr"):
     return launches, (nlp, params, Zb, opts)
 
 
-# config 3: bench.py's config-3 options (bench.py:239-244)
-C3_N, C3_T, C3_B = 200, 50.0, 16
-KNOT_PARTS = (4, 8)
 
 
 def _c3_options(**kw):
@@ -1435,15 +1619,15 @@ def _cnot_fidelities(prob, us, Z, u_sl, U_sl):
 
 # the kernels of the config-3 and the CNOT-knot paths, and those they must not launch
 C3_KERNELS = ["chol_inv_factor", "psd_clamp", "condensed_factor", "condensed_solve",
-              "expm_taylor_fixed"]
+              *TAYLOR_KERNELS]
 KNOT_KERNELS = ["chol_inv_factor", "psd_clamp", "knot_factor", "knot_solve",
-                "expm_taylor_fixed"]
-OFF_PATH = ["qd_factor", "qd_solve", "expm_pade_fixed", "tri_lower_inv",
+                *TAYLOR_KERNELS]
+OFF_PATH = ["qd_factor", "qd_solve", *PADE_KERNELS, "tri_lower_inv",
             "knot_tridiag_solve"]
 # the CNOT on "qd" (phase 12): K7 instead of K1 and K3 (and no K9)
-C3_QD_KERNELS = ["psd_clamp", "qd_factor", "qd_solve", "expm_taylor_fixed"]
+C3_QD_KERNELS = ["psd_clamp", "qd_factor", "qd_solve", *TAYLOR_KERNELS]
 C3_QD_FORBIDDEN = ["chol_inv_factor", "condensed_factor", "condensed_solve",
-                   "knot_factor", "knot_solve", "expm_pade_fixed", "tri_lower_inv",
+                   "knot_factor", "knot_solve", *PADE_KERNELS, "tri_lower_inv",
                    "knot_tridiag_solve"]
 
 
@@ -1732,6 +1916,7 @@ def main():
     check_expm_cnot(1, 3 * 8, "float64", record)
     check_expm_cnot(C3_B, 2 * 8, "float32", record, pade_order=7)
     check_expm_cnot(1, 3 * 8, "float64", record, pade_order=7)
+    check_expm_derivatives(record)
     check_knot(1, C3_N, 44, 40, "float64", record)
     check_knot(C3_B, C3_N, 44, 40, "float32", record)
     check_knot_tridiag(record)

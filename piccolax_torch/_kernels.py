@@ -9,9 +9,12 @@ built or loaded when the module is imported.
 `LAUNCHES` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else (one for each call
 of the K3 factor and the K9 wrappers, whose C entries launch a sequence of
-kernels: a factor one or two a level, a K9 solve three). `WIDTHS` counts
-the same launches of K4 and K6 by block width ("expm_taylor_fixed 12"),
-which tells a path's residual sweeps from its derivative augmentations.
+kernels: a factor one or two a level, a K9 solve three). K4's and K6's
+derivative form counts under its own keys ("expm_taylor_fixed_derivatives",
+"expm_pade_fixed_derivatives"). `WIDTHS` counts the launches of K4 and K6
+in both forms by block width ("expm_taylor_fixed 8",
+"expm_taylor_fixed_derivatives 4"), which tells a path's residual sweeps
+from its derivative launches and from dense augmentations.
 """
 
 from __future__ import annotations
@@ -30,14 +33,16 @@ __all__ = ["LAUNCHES", "WIDTHS", "reset_launch_counts", "count_launch", "load",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "cr_solve", "expm_taylor",
-            "expm_pade13", "expm_pade_fixed", "qd", "tri_inv", "knot")
+_SOURCES = ("chol_inv", "psd_clamp", "condensed_cr", "cr_solve", "expm_fixed",
+            "expm_pade13", "qd", "tri_inv", "knot")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"chol_inv_factor": 0, "psd_clamp": 0, "condensed_factor": 0,
-            "condensed_solve": 0, "expm_taylor_fixed": 0, "expm_pade13": 0,
-            "expm_pade_fixed": 0, "qd_factor": 0, "qd_solve": 0,
+            "condensed_solve": 0, "expm_taylor_fixed": 0,
+            "expm_taylor_fixed_derivatives": 0, "expm_pade13": 0,
+            "expm_pade_fixed": 0, "expm_pade_fixed_derivatives": 0,
+            "qd_factor": 0, "qd_solve": 0,
             "tri_lower_inv": 0, "knot_factor": 0, "knot_solve": 0,
             "knot_tridiag_solve": 0}
 
@@ -62,9 +67,12 @@ _SIGNATURES = {
         "px_condensed_solve_ws": ([_C, _C, _C, _C, _C], _L),
         "px_condensed_solve_cluster": ([_C] * 5, _C),
     },
-    "expm_taylor": {"px_expm_taylor": ([_C, _P, _P, _L, _C, _C, _C, _P], _C)},
+    "expm_fixed": {
+        "px_expm_taylor": ([_C, _P, _P, _L, _C, _C, _C, _P], _C),
+        "px_expm_pade_fixed": ([_C, _P, _P, _L, _C, _C, _C, _P], _C),
+        "px_expm_fixed_derivatives": ([_C] * 4 + [_P] * 5 + [_L, _L, _C, _C, _P], _C),
+    },
     "expm_pade13": {"px_expm_pade13": ([_C, _P, _P, _P, _L, _C, _C, _P], _C)},
-    "expm_pade_fixed": {"px_expm_pade_fixed": ([_C, _P, _P, _L, _C, _C, _C, _P], _C)},
     "qd": {
         "px_qd_factor": ([_C, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _P], _C),
         "px_qd_solve": ([_C, _P, _P, _P, _P, _P, _P, _C, _C, _C, _C, _C, _P], _C),
@@ -88,7 +96,8 @@ def reset_launch_counts() -> None:
 
 
 def count_launch(name: str, width: int) -> None:
-    """One launch of kernel `name` on blocks `width` wide (K4, K6)."""
+    """One launch of kernel `name` on blocks `width` wide (K4, K6, both
+    forms)."""
     LAUNCHES[name] += 1
     key = f"{name} {width}"
     WIDTHS[key] = WIDTHS.get(key, 0) + 1

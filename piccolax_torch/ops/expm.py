@@ -7,13 +7,16 @@
   integer `pade_order`: diagonal Pade [m/m] (m in 3, 5, 7, 9) with a
   static squaring count and the denominator inverted by 6 Newton-Schulz
   steps.
+- `expm_fixed_derivatives`: either approximant with its exact first and
+  second directional derivatives, carried on the block-triangular
+  structure of the augmentations that piccolax's jacfwd / hessian
+  differentiate (K4's and K6's derivative form).
 - `expm` (K5), the rollout: scaling-and-squaring Pade-13 with a squaring
   count per matrix and the denominator inverted by Newton-Schulz.
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(`csrc/expm_taylor.cu`, `csrc/expm_pade_fixed.cu`, `csrc/expm_pade13.cu`);
-on a CPU tensor it runs its `*_plain` version, the same arithmetic in
-PyTorch.
+On a CUDA tensor each wrapper launches its hand-written kernel (K4 and K6
+in both forms: `csrc/expm_fixed.cu`; K5: `csrc/expm_pade13.cu`); on a CPU
+tensor it runs its `*_plain` version, the same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ from .._device import resolve_device
 
 __all__ = ["TAYLOR_THETA", "PADE_ORDERS", "pade_radius", "expm_taylor_fixed",
            "expm_taylor_fixed_plain", "expm_pade_fixed", "expm_pade_fixed_plain",
-           "expm_action", "expm_fixed", "derivative_augmentations",
-           "expm_fixed_derivatives", "expm", "expm_plain",
-           "pade13_squarings", "anti_hermitian_by_squarings"]
+           "expm_action", "expm_fixed", "expm_fixed_plain", "derivative_augmentations",
+           "expm_fixed_derivatives", "expm_fixed_derivatives_plain",
+           "expm_fixed_derivatives_dense", "MAX_DERIVATIVE_WIDTH", "expm",
+           "expm_plain", "pade13_squarings", "anti_hermitian_by_squarings"]
 
 _FACT = [1.0]
 for _i in range(1, 14):
@@ -40,6 +44,85 @@ for _i in range(1, 14):
 TAYLOR_THETA = 0.33
 
 _MAX_N = 32
+# the widest block of the derivative form (any number of directions)
+MAX_DERIVATIVE_WIDTH = 16
+
+
+class _Triple:
+    """An intermediate of either approximant on the augmentations
+    M_ij = [[A, E_i, 0], [0, A, E_j], [0, 0, A]] of `expm_fixed_derivatives`:
+    D [..., w, w] (every diagonal block), F [..., d, w, w] (block (1,2) of
+    M_ij is F_i, block (2,3) F_j) and S [..., P, w, w], the symmetric sums
+    C_ij + C_ji of the corners for the pairs i <= j (`ii`, `jj`). The plain
+    approximants run on it unchanged: sums, scalar products and the
+    identity act block by block (the identity on D), and a product follows
+    (D, F, S) (D', F', S') = (D D', D F'_k + F_k D',
+    D S'_ij + F_i F'_j + F_j F'_i + S_ij D'), summed in that order as
+    csrc/expm_fixed.cu sums it."""
+
+    def __init__(self, D, F, S, ii, jj):
+        self.D, self.F, self.S, self.ii, self.jj = D, F, S, ii, jj
+
+    @classmethod
+    def of(cls, A, E):
+        """The augmentations' blocks: (A, E, 0)."""
+        w, d = A.shape[-1], E.shape[-3]
+        ii, jj = torch.triu_indices(d, d, device=A.device)
+        return cls(A, E, A.new_zeros(*A.shape[:-2], len(ii), w, w), ii, jj)
+
+    def outputs(self):
+        """(Phi, dPhi, D2): D, F, and S written to both (i, j) and (j, i)."""
+        d, w = self.F.shape[-3], self.D.shape[-1]
+        D2 = self.D.new_empty(*self.D.shape[:-2], d, d, w, w)
+        D2[..., self.ii, self.jj, :, :] = self.S
+        D2[..., self.jj, self.ii, :, :] = self.S
+        return self.D, self.F, D2
+
+    @property
+    def dtype(self):
+        return self.D.dtype
+
+    def _new(self, D, F, S):
+        return _Triple(D, F, S, self.ii, self.jj)
+
+    def eye(self):
+        n = self.D.shape[-1]
+        eye = torch.eye(n, dtype=self.D.dtype, device=self.D.device).expand(self.D.shape)
+        return self._new(eye, torch.zeros_like(self.F), torch.zeros_like(self.S))
+
+    def __add__(self, o):
+        if isinstance(o, int) and o == 0:           # sum() starts from 0
+            return self
+        return self._new(self.D + o.D, self.F + o.F, self.S + o.S)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._new(self.D - o.D, self.F - o.F, self.S - o.S)
+
+    def __mul__(self, c):
+        return self._new(self.D * c, self.F * c, self.S * c)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, c):
+        return self._new(self.D / c, self.F / c, self.S / c)
+
+    def __matmul__(self, q):
+        Dp, Dq = self.D[..., None, :, :], q.D[..., None, :, :]
+        ii, jj = self.ii, self.jj
+        F = Dp @ q.F + self.F @ Dq
+        S = Dp @ q.S + self.F[..., ii, :, :] @ q.F[..., jj, :, :] \
+            + self.F[..., jj, :, :] @ q.F[..., ii, :, :] + self.S @ Dq
+        return self._new(self.D @ q.D, F, S)
+
+
+def _eye_like(A):
+    """The identity of A's algebra, broadcast to A's shape."""
+    if isinstance(A, _Triple):
+        return A.eye()
+    n = A.shape[-1]
+    return torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
 
 
 def _order(A, order):
@@ -51,12 +134,12 @@ def _order(A, order):
 
 
 def expm_taylor_fixed_plain(A, order: int | None = None, squarings: int = 2):
-    """Plain PyTorch version of K4, batched over leading axes."""
+    """Plain PyTorch version of K4, batched over leading axes (also on the
+    structured intermediates of `expm_fixed_derivatives_plain`)."""
     order = _order(A, order)
     c = [1.0 / _FACT[i] for i in range(order + 1)]
     A = A * (2.0 ** (-squarings))
-    n = A.shape[-1]
-    ident = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    ident = _eye_like(A)
     A2 = A @ A
     A3 = A2 @ A
     A4 = A2 @ A2
@@ -78,10 +161,12 @@ def expm_taylor_fixed_plain(A, order: int | None = None, squarings: int = 2):
 def expm_taylor_fixed(A, order: int | None = None, squarings: int = 2):
     """K4: Taylor expm of every [n, n] matrix of A [..., n, n] (n <= 32).
 
-    Replaces piccolax/ops/expm.py: expm_taylor_fixed. Bound on the H100:
-    bytes at 4 x 4, float32 arithmetic at 12 x 12; the kernel keeps all
-    powers of a matrix in shared memory, one thread per entry, several
-    matrices per thread block.
+    Replaces piccolax/ops/expm.py:143 expm_taylor_fixed. Bound on the
+    H100: bytes at 4 x 4 and 8 x 8 (the paths' residuals and line-search
+    sweeps). The kernel (csrc/expm_fixed.cu) gives a warp its matrices and
+    a thread one or two rows of a matrix, kept in registers up to 8 wide;
+    only the products' right operands go through shared memory, with a
+    warp barrier a product.
     """
     order = _order(A, order)
     if A.device.type == "cpu":
@@ -95,7 +180,7 @@ def expm_taylor_fixed(A, order: int | None = None, squarings: int = 2):
                          f"expected, got {tuple(A.shape)}")
     out = torch.empty_like(A)
     batch = A.numel() // (n * n)
-    lib = _kernels.load("expm_taylor")
+    lib = _kernels.load("expm_fixed")
     rc = lib.px_expm_taylor(_kernels.is_f64(A), A.data_ptr(), out.data_ptr(),
                             batch, n, order, squarings,
                             _kernels.stream_handle(A))
@@ -107,9 +192,8 @@ def expm_taylor_fixed(A, order: int | None = None, squarings: int = 2):
 def _ns_solve(Mden, Mnum, b0, iters):
     """Solve Mden @ F = Mnum by Newton-Schulz: X <- X(2I - Mden X) from
     X0 = I/b0 (Mden = b0 (I + E) with ||E|| < 1)."""
-    n = Mden.shape[-1]
-    ident = torch.eye(n, dtype=Mden.dtype, device=Mden.device)
-    X = (ident / b0).expand(Mden.shape)
+    ident = _eye_like(Mden)
+    X = ident / b0
     for _ in range(iters):
         X = X @ (2.0 * ident - Mden @ X)
     return X @ Mnum
@@ -143,12 +227,12 @@ def pade_radius(order) -> float:
 
 
 def expm_pade_fixed_plain(A, order: int = 7, squarings: int = 2):
-    """Plain PyTorch version of K6, batched over leading axes."""
+    """Plain PyTorch version of K6, batched over leading axes (also on the
+    structured intermediates of `expm_fixed_derivatives_plain`)."""
     pade_radius(order)
     b = PADE_ORDERS[order][1]
     A = A * (2.0 ** (-squarings))
-    n = A.shape[-1]
-    ident = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    ident = _eye_like(A)
     n_even = (order + 1) // 2
     evens = [ident]
     A2 = A @ A
@@ -169,12 +253,11 @@ def expm_pade_fixed(A, order: int = 7, squarings: int = 2):
     A [..., n, n] (n <= 32) with a static squaring count.
 
     Replaces piccolax/ops/expm.py:105 expm_pade_fixed (with _ns_solve).
-    Bound on the H100: bytes at 4 x 4, float64 arithmetic at 12 x 12
-    (3 to 5 products for the powers and U, 12 for the Newton-Schulz
-    inverse, 1 for the numerator, then the squarings). The kernel keeps
-    every intermediate of a matrix in shared memory, one thread per
-    entry, several matrices per thread block, so device memory sees each
-    input and each result once; see csrc/expm_pade_fixed.cu.
+    Bound on the H100: bytes at 4 x 4 (the paths' residuals and sweeps;
+    3 to 5 products for the powers and U, 12 for the Newton-Schulz inverse,
+    1 for the numerator, then the squarings). The kernel is K4's engine
+    (csrc/expm_fixed.cu): a row a thread, a warp its matrices, device
+    memory sees each input and each result once.
     """
     pade_radius(order)
     if A.device.type == "cpu":
@@ -187,7 +270,7 @@ def expm_pade_fixed(A, order: int = 7, squarings: int = 2):
         raise ValueError(f"expm_pade_fixed: square blocks up to {_MAX_N} "
                          f"expected, got {tuple(A.shape)}")
     out = torch.empty_like(A)
-    lib = _kernels.load("expm_pade_fixed")
+    lib = _kernels.load("expm_fixed")
     rc = lib.px_expm_pade_fixed(_kernels.is_f64(A), A.data_ptr(), out.data_ptr(),
                                 A.numel() // (n * n), n, order, squarings,
                                 _kernels.stream_handle(A))
@@ -209,6 +292,15 @@ def expm_fixed(A, order, squarings: int):
     return expm_pade_fixed(A, order, squarings)
 
 
+def expm_fixed_plain(A, order, squarings: int, taylor_order: int | None = None):
+    """The plain version of `expm_fixed` (on tensors or on the structured
+    intermediates of `expm_fixed_derivatives_plain`); taylor_order, the
+    Taylor order when it is not the dtype's (8 in float32, 12 otherwise)."""
+    if order == "taylor":
+        return expm_taylor_fixed_plain(A, taylor_order, squarings)
+    return expm_pade_fixed_plain(A, order, squarings)
+
+
 def derivative_augmentations(A, E):
     """The block upper-triangular M_ij = [[A, E_i, 0], [0, A, E_j],
     [0, 0, A]] of `expm_fixed_derivatives`, [..., d * d, 3w, 3w] for
@@ -224,9 +316,53 @@ def derivative_augmentations(A, E):
     return M.reshape(*lead, d * d, 3 * w, 3 * w).contiguous()
 
 
+def expm_fixed_derivatives_dense(A, E, order, squarings: int):
+    """`expm_fixed_derivatives` by the dense route: the value form
+    (`expm_fixed`, a kernel on a CUDA tensor, 3w <= 32) on every
+    `derivative_augmentations` M_ij, then its blocks: r(A) on the diagonal,
+    Dr(A)[E_i] in block (1,2) of M_ii, the ordered half of
+    D^2 r(A)[E_i, E_j] in the corner of M_ij. The oracle of the structured
+    form; no path calls it."""
+    w = A.shape[-1]
+    d = E.shape[-3]
+    lead = A.shape[:-2]
+    R = expm_fixed(derivative_augmentations(A, E), order,
+                   squarings).reshape(*lead, d, d, 3 * w, 3 * w)
+    idx = torch.arange(d, device=A.device)
+    half = R[..., :w, 2 * w:]
+    return (R[..., 0, 0, :w, :w], R[..., idx, idx, :w, w:2 * w],
+            half + half.transpose(-3, -4))
+
+
+def _check_derivative_shapes(A, E):
+    """A [..., w, w] and E [..., d, w, w] whose leading axes broadcast to A's."""
+    w = A.shape[-1] if A.dim() >= 2 else 0
+    ok = A.dim() >= 2 and A.shape[-2] == w and E.dim() >= 3 \
+        and tuple(E.shape[-2:]) == (w, w)
+    if ok and E.shape[:-3] != A.shape[:-2]:
+        try:
+            ok = torch.broadcast_shapes(A.shape[:-2], E.shape[:-3]) == A.shape[:-2]
+        except RuntimeError:
+            ok = False
+    if not ok:
+        raise ValueError(f"expm_fixed_derivatives: A [..., w, w] and E [..., d, w, w] "
+                         f"(leading axes broadcasting to A's) expected, got "
+                         f"{tuple(A.shape)} and {tuple(E.shape)}")
+
+
+def expm_fixed_derivatives_plain(A, E, order, squarings: int,
+                                 taylor_order: int | None = None):
+    """Plain PyTorch version of the derivative form: the approximant's
+    plain version on the structured intermediates (D, F, S), each product
+    a batched `@` on [..., w, w], [..., d, w, w] and [..., P, w, w]
+    (taylor_order as `expm_fixed_plain` takes it)."""
+    _check_derivative_shapes(A, E)
+    return expm_fixed_plain(_Triple.of(A, E), order, squarings, taylor_order).outputs()
+
+
 def expm_fixed_derivatives(A, E, order, squarings: int):
     """r(A) and its exact first and second directional derivatives along
-    the directions E [..., d, w, w], for A [..., w, w], in ONE expm call.
+    the directions E [..., d, w, w], for A [..., w, w], in ONE launch.
 
     Every product and sum of either approximant is a polynomial in A:
     Taylor's r(A) = p(A / 2^s)^(2^s), and Pade's r(A) = (X_6 (V + U))^(2^s)
@@ -236,20 +372,55 @@ def expm_fixed_derivatives(A, E, order, squarings: int):
     r(A) on the diagonal, Dr(A)[E_i] and Dr(A)[E_j] above it, and the
     ordered half of D^2 r(A)[E_i, E_j] in the corner; the second
     derivative is the sum of both orders. These are the derivatives that
-    autodiff of the same approximant gives, to rounding.
+    autodiff of the same approximant gives, to rounding. The kernel
+    (csrc/expm_fixed.cu, w <= 16, any d) and the plain version carry the
+    blocks without forming M: r(A), each Dr(A)[E_k] once, and the
+    symmetric sums for i <= j (`_Triple`).
+
+    E's leading axes broadcast to A's: the kernel reads directions shared
+    by a batch (a frozen timestep: E [N-1, d, w, w] beside A [B, N-1, w, w])
+    where they are, and any other broadcast from a copy.
 
     Returns (Phi [..., w, w], dPhi [..., d, w, w], D2 [..., d, d, w, w]).
     """
-    w = A.shape[-1]
-    d = E.shape[-3]
+    _check_derivative_shapes(A, E)
+    taylor = order == "taylor"
+    o = _order(A, None) if taylor else order
+    if not taylor:
+        pade_radius(order)
+    if A.device.type == "cpu":
+        return expm_fixed_derivatives_plain(A, E, order, squarings)
+    if A.device.type != "cuda":
+        raise RuntimeError(f"expm_fixed_derivatives: unsupported device {A.device}")
+    name = "expm_taylor_fixed_derivatives" if taylor else "expm_pade_fixed_derivatives"
+    w, d = A.shape[-1], E.shape[-3]
     lead = A.shape[:-2]
-    R = expm_fixed(derivative_augmentations(A, E), order,
-                   squarings).reshape(*lead, d, d, 3 * w, 3 * w)
-    idx = torch.arange(d, device=A.device)
-    Phi = R[..., 0, 0, :w, :w]
-    dPhi = R[..., idx, idx, :w, w:2 * w]
-    half = R[..., :w, 2 * w:]
-    return Phi, dPhi, half + half.transpose(-3, -4)
+    # E's batch, read as knot b % e_batch: its leading axes equal A's
+    # trailing ones (after any 1s), else a broadcast copy
+    e_lead = list(E.shape[:-3])
+    while e_lead and e_lead[0] == 1:
+        e_lead.pop(0)
+    if e_lead and tuple(e_lead) != tuple(lead[len(lead) - len(e_lead):]):
+        E = E.expand(*lead, d, w, w)
+        e_lead = list(lead)
+    E = E.contiguous()
+    _kernels.require(A, name)
+    _kernels.require(E, name, like=A)
+    if w > MAX_DERIVATIVE_WIDTH or d < 1:
+        raise ValueError(f"{name}: blocks up to {MAX_DERIVATIVE_WIDTH} wide and at "
+                         f"least one direction expected, got {tuple(E.shape)}")
+    Phi = torch.empty_like(A)
+    dPhi = A.new_empty(*lead, d, w, w)
+    D2 = A.new_empty(*lead, d, d, w, w)
+    lib = _kernels.load("expm_fixed")
+    rc = lib.px_expm_fixed_derivatives(_kernels.is_f64(A), int(taylor), o, squarings,
+                                       A.data_ptr(), E.data_ptr(), Phi.data_ptr(),
+                                       dPhi.data_ptr(), D2.data_ptr(),
+                                       A.numel() // (w * w), E.numel() // (d * w * w), w,
+                                       d, _kernels.stream_handle(A))
+    _kernels.count_launch(name, w)
+    _kernels.check(rc, name)
+    return Phi, dPhi, D2
 
 
 # --------------------------------------------------------------------------- #

@@ -72,6 +72,76 @@ def test_expm_derivative_blocks_match_jax_autodiff():
     assert _rel(np.moveaxis(D2.numpy(), (0, 1), (-2, -1)), H) < 1e-10
 
 
+def _directions(rng, w, d, radius, squarings, lead=(3,)):
+    """A [*lead, w, w] at half the accuracy radius times 2^s (inf-norm) and
+    directions E [*lead, d, w, w] of the same scale, float64."""
+    A = rng.standard_normal((*lead, w, w))
+    A *= 0.5 * radius * 2.0 ** squarings / np.abs(A).sum(-1).max(-1)[..., None, None]
+    E = 0.3 * radius * 2.0 ** squarings * rng.standard_normal((*lead, d, w, w)) / w
+    return torch.as_tensor(A), torch.as_tensor(E)
+
+
+def _dense_derivatives(A, E, fn, order, squarings):
+    """The oracle: the plain approximant on every dense augmentation, then
+    its blocks (as `expm_fixed_derivatives_dense` slices them)."""
+    w, d = A.shape[-1], E.shape[-3]
+    R = fn(pexpm.derivative_augmentations(A, E), order, squarings).reshape(
+        *A.shape[:-2], d, d, 3 * w, 3 * w)
+    idx = torch.arange(d)
+    half = R[..., :w, 2 * w:]
+    return R[..., 0, 0, :w, :w], R[..., idx, idx, :w, w:2 * w], half + half.transpose(-3, -4)
+
+
+@pytest.mark.parametrize("w,d", [(4, 2), (4, 3), (8, 4), (10, 5)])
+@pytest.mark.parametrize("squarings", [0, 1, 2])
+@pytest.mark.parametrize("order", [8, 12])
+def test_expm_derivative_structured_matches_dense(order, squarings, w, d):
+    """The structured plain form (D, F, S) of the Taylor approximant against
+    the dense plain form on derivative_augmentations, 1e-13 relative."""
+    rng = np.random.default_rng(100 * order + 10 * w + d + squarings)
+    A, E = _directions(rng, w, d, pexpm.TAYLOR_THETA, squarings)
+    got = pexpm.expm_fixed_derivatives_plain(A, E, "taylor", squarings, taylor_order=order)
+    ref = _dense_derivatives(A, E, pexpm.expm_taylor_fixed_plain, order, squarings)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rel(g.numpy(), r.numpy()) < 1e-13
+    if order == 12:                # the dispatching entry (float64: order 12)
+        for g, r in zip(pexpm.expm_fixed_derivatives(A, E, "taylor", squarings), got):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("taylor_order", [8, 12])
+def test_expm_derivative_blocks_match_jax_autodiff_8_wide(taylor_order):
+    """The structured form at w = 8 and d = 4 (the CNOT's blocks) gives
+    the jacfwd / hessian of piccolax's Taylor approximant (2 squarings)."""
+    rng = np.random.default_rng(8 + taylor_order)
+    A, E = _directions(rng, 8, 4, pexpm.TAYLOR_THETA, 2, lead=())
+    An, En = A.numpy(), E.numpy()
+
+    def f(u):
+        return jexpm.expm_taylor_fixed(jnp.asarray(An) + jnp.tensordot(u, jnp.asarray(En), 1),
+                                       taylor_order, 2)
+
+    F, J, H = jax.jit(lambda u: (f(u), jax.jacfwd(f)(u), jax.hessian(f)(u)))(jnp.zeros(4))
+    Phi, dPhi, D2 = pexpm.expm_fixed_derivatives_plain(A, E, "taylor", 2,
+                                                       taylor_order=taylor_order)
+    assert _rel(Phi.numpy(), F) < 1e-13
+    assert _rel(np.moveaxis(dPhi.numpy(), 0, -1), np.asarray(J)) < 1e-10
+    assert _rel(np.moveaxis(D2.numpy(), (0, 1), (-2, -1)), np.asarray(H)) < 1e-10
+
+
+@pytest.mark.parametrize("shapes", [((2, 4, 4), (2, 3, 4, 5)), ((2, 4, 4), (3, 2, 4, 4)),
+                                    ((2, 4, 4), (4, 4)), ((2, 4, 5), (2, 3, 4, 5)),
+                                    ((2, 4, 4), (3, 2, 2, 4, 4))],
+                         ids=["E-width", "E-batch", "E-no-directions", "A-not-square",
+                              "E-wider-batch"])
+def test_expm_fixed_derivatives_refuses_mismatched_shapes(shapes):
+    """E [..., d, w, w] of A's width whose leading axes broadcast to A's."""
+    A, E = (torch.zeros(s, dtype=torch.float64) for s in shapes)
+    with pytest.raises(ValueError):
+        pexpm.expm_fixed_derivatives(A, E, "taylor", 1)
+
+
 # -- K1: Cholesky-inverse factor ---------------------------------------------
 
 

@@ -106,6 +106,46 @@ def test_pade_derivative_blocks_match_jax_autodiff():
         assert _rel(np.moveaxis(D2.numpy(), (0, 1), (-2, -1)), np.asarray(H)) < 1e-10
 
 
+@pytest.mark.parametrize("w,d", [(4, 2), (4, 3), (8, 4), (10, 5)])
+@pytest.mark.parametrize("squarings", [0, 1, 2])
+@pytest.mark.parametrize("order", [3, 5, 7, 9])
+def test_pade_derivative_structured_matches_dense(order, squarings, w, d):
+    """The structured plain form (D, F, S) of the Pade approximant, Newton-
+    Schulz steps included, against the dense plain form on
+    derivative_augmentations, 1e-13 relative."""
+    rng = np.random.default_rng(100 * order + 10 * w + d + squarings)
+    A = _inside_radius(rng, (3,), w, order, squarings)
+    E = 0.3 * pexpm.pade_radius(order) * 2.0 ** squarings * rng.standard_normal((3, d, w, w)) / w
+    A, E = torch.as_tensor(A), torch.as_tensor(E)
+    got = pexpm.expm_fixed_derivatives(A, E, order, squarings)
+    R = pexpm.expm_pade_fixed_plain(pexpm.derivative_augmentations(A, E), order,
+                                    squarings).reshape(3, d, d, 3 * w, 3 * w)
+    half = R[..., :w, 2 * w:]
+    ref = (R[:, 0, 0, :w, :w], R[:, torch.arange(d), torch.arange(d), :w, w:2 * w],
+           half + half.transpose(-3, -4))
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rel(g.numpy(), r.numpy()) < 1e-13
+
+
+def test_pade_derivative_blocks_match_jax_autodiff_8_wide():
+    """The structured form at w = 8 and d = 4 (the CNOT's blocks) gives the
+    jacfwd / hessian of piccolax's expm_pade_fixed (order 7, s = 1)."""
+    rng = np.random.default_rng(87)
+    A = _inside_radius(rng, (), 8, 7, 1)
+    E = 0.3 * rng.standard_normal((4, 8, 8)) / 8
+
+    def f(u):
+        return jexpm.expm_pade_fixed(jnp.asarray(A) + jnp.tensordot(u, jnp.asarray(E), 1),
+                                     7, 1)
+
+    F, J, H = jax.jit(lambda u: (f(u), jax.jacfwd(f)(u), jax.hessian(f)(u)))(jnp.zeros(4))
+    Phi, dPhi, D2 = pexpm.expm_fixed_derivatives(torch.as_tensor(A), torch.as_tensor(E), 7, 1)
+    assert _rel(Phi.numpy(), F) < 1e-13
+    assert _rel(np.moveaxis(dPhi.numpy(), 0, -1), np.asarray(J)) < 1e-10
+    assert _rel(np.moveaxis(D2.numpy(), (0, 1), (-2, -1)), np.asarray(H)) < 1e-10
+
+
 # -- the Pade build ------------------------------------------------------------
 
 
