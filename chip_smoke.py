@@ -72,7 +72,13 @@ each padding class (n = 1 to 64, both types and modes) with a NaN block
 whose mask must equal the plain version's and a block one ulp short of
 symmetric, which must come out all NaN (the kernels take exactly
 symmetric blocks); K3's solve at B = 1, 2, 12, 16, 24, 64 and 256 (every
-cluster size it launches with) and N = 13 and 2, one launch a call. The
+cluster size it launches with) and N = 13 and 2, one launch a call; K9's
+solve at B = 1, 2 and 16, P = 2, 4 and 8, N = 3P, 4P and 40 (every cluster
+size its planner chooses, printed from the library), held as K3's and
+against "cr", with the one-problem NaN isolation; K1 at every width 1-64 in
+both types, at batches that leave a warp's packed blocks short, with an
+indefinite and a NaN block (the same NaN mask as the plain version), and
+its raw launch timed beside the wrapper (raw_ms in the kernels line). The
 paths print K4's and K6's launches by block width and form (residual
 sweeps, derivative launches), and fail if the value form ran on a 12- or
 24-wide augmentation.
@@ -264,8 +270,10 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
            _time_ms(lambda: kkt.chol_inv_factor_plain(P), reps),
            bound(M * (dz ** 3 + 3 * dz * dz), 2 * M * dz * dz * es),
            _time_ms(lambda: _library_chol_inv(P), reps),
-           f"{tol['K1']:.0e} relative, same NaN mask",
-           shape=f"[{B},{N},{dz},{dz}] {dtype}", variant=variant)
+           f"{tol['K1']:.0e} relative, same NaN mask; ms through the wrapper, "
+           f"raw_ms the launch alone",
+           shape=f"[{B},{N},{dz},{dz}] {dtype}", variant=variant,
+           extra={"raw_ms": _k1_raw_ms(P, reps)})
 
     # -- K3: condensed factor and solve, [B, N] knots of dz columns, m rows
     # (_cr_accuracy: float64 to 1e-9, float32 against the plain version in
@@ -921,6 +929,57 @@ def check_cr_widths(reps=5):
             print(f"cr width sweep dz={dz} m={m} {dtype}: " + "; ".join(line), flush=True)
 
 
+# K1's batches: 37 and 6 leave the last warp's packed blocks short (a warp
+# holds 4 blocks up to 16 wide, 2 up to 32)
+K1_BATCHES = (37, 6)
+
+
+def check_k1_widths(reps=5):
+    """Phase 3, K1 at every width 1-64 in float32 and float64, at batches of
+    K1_BATCHES: SPD blocks (X X^T / n + I) against the plain version (1e-9
+    relative in float64, 1e-4 in float32), with block 3 made indefinite
+    (minus 10 I) and, where the batch has it, block 5 holding a NaN in its
+    lower triangle; the NaN mask (any NaN in a block) must equal the plain
+    version's, the flagged blocks be all NaN, and every other block must be
+    finite."""
+    import torch
+    from piccolax_torch.solver import kkt
+
+    rng = np.random.default_rng(29)
+    for dtype in ("float32", "float64"):
+        line = []
+        for n in range(1, 65):
+            for batch in K1_BATCHES:
+                X = rng.standard_normal((batch, n, n))
+                A = X @ np.swapaxes(X, -1, -2) / n + np.eye(n)
+                A[3] -= 10.0 * np.eye(n)
+                if batch > 5:
+                    A[5, n - 1, 0] = A[5, 0, n - 1] = np.nan
+                A = torch.as_tensor(A, dtype=getattr(torch, dtype), device="cuda")
+                got, ref = kkt.chol_inv_factor(A), kkt.chol_inv_factor_plain(A)
+                nan_k = torch.isnan(got).any(-1).any(-1)
+                _check(torch.equal(nan_k, torch.isnan(ref).any(-1).any(-1)),
+                       f"chol_inv_factor [{batch},{n},{n}] {dtype}: NaN mask differs")
+                _check(bool(torch.isnan(got[nan_k]).all()),
+                       f"chol_inv_factor [{batch},{n},{n}] {dtype}: a flagged block not "
+                       f"all NaN")
+                bad = {3, 5} if batch > 5 else {3}
+                _check(nan_k.nonzero().flatten().tolist() == sorted(bad),
+                       f"chol_inv_factor [{batch},{n},{n}] {dtype}: NaN in blocks "
+                       f"{nan_k.nonzero().flatten().tolist()}, expected {sorted(bad)}")
+                # (the plain version on the card may leave a NaN block partly
+                # finite; the kernel's is all NaN)
+                rel = _rel_err(got[~nan_k], ref[~nan_k])[1]
+                _check(rel < (1e-9 if dtype == "float64" else 1e-4),
+                       f"chol_inv_factor [{batch},{n},{n}] {dtype}: rel err {rel:.3e}")
+            if n in (1, 8, 14, 15, 16, 17, 32, 33, 44, 48, 49, 64):
+                line.append(f"{n}: {rel:.1e} "
+                            f"{_time_ms(lambda: kkt.chol_inv_factor(A), reps):.4f} ms")
+        print(f"chol_inv_factor width sweep {dtype}, widths 1-64 at batches {K1_BATCHES} "
+              f"(n: rel err, kernel ms at batch {K1_BATCHES[-1]}): " + ", ".join(line),
+              flush=True)
+
+
 # K2's widths: n = 1 and each padding class (16, 32, 48, 64) at its edges
 # and inside it
 K2_SWEEP = [1, 2, 5, 9, 13, 16, 17, 24, 31, 32, 33, 40, 47, 48, 49, 57, 63, 64]
@@ -1016,6 +1075,72 @@ def check_cr_solve_clusters(reps=5):
             print(f"cr solve B={B} {dtype} dz={dz} m={m}, cluster {S}: " + "; ".join(line),
                   flush=True)
     _check(ran >= {1, 2, 4, 8, 16}, f"condensed_solve ran cluster sizes {sorted(ran)} only")
+
+
+# K9's solve: batches and partitions reaching every cluster size its planner
+# launches with (c1/c3 of B P clusters, c2 of B), at the partition edges
+# N = 3P (one interior knot) and 4P (two, Npk = 2), and N = 40
+KNOT_SOLVE_B = (1, 2, 16)
+KNOT_SOLVE_P = (2, 4, 8)
+
+
+def check_knot_solve_clusters(reps=5):
+    """Phase 3, K9's solve at every cluster size: B of KNOT_SOLVE_B, P of
+    KNOT_SOLVE_P, N = 3P, 4P and 40, at the CNOT's blocks (dz = 44, m = 40)
+    in float64 and float32, held as _cr_accuracy holds it (float64 to 1e-9
+    of the plain version, factor, solve and solve on the kernel's factors;
+    float32: the solve on the kernel's factors against the plain solve on
+    them, both against float64 on three seeds, 2x rule: the pair that holds
+    the solve kernel alone, the factor's own pairs being check_knot's and
+    check_cr_widths'), the solution also against K3's plain condensed
+    solve ("cr"; 1e-9 in float64, 1e-3 in float32) and, at N = 4P, with one
+    indefinite dual block (_cr_nan: NaN in its problem alone); each solve
+    call must count one knot_solve launch. Prints the cluster sizes the
+    library plans ((c1, c3) a partition, (c2) a problem); every size 1-16
+    must have run."""
+    from piccolax_torch import _kernels
+    from piccolax_torch.parallel import sharded_kkt as sk
+    from piccolax_torch.solver import kkt
+
+    rng = np.random.default_rng(30)
+    lib = _kernels.load("knot")
+    dz, m = 44, 40
+    ran = set()
+    for dtype in ("float64", "float32"):
+        f64 = int(dtype == "float64")
+        for B in KNOT_SOLVE_B:
+            for P in KNOT_SOLVE_P:
+                line = []
+                for N in (3 * P, 4 * P, 40):
+                    if N % P:
+                        continue
+                    S = [lib.px_knot_solve_cluster(f64, B, N, P, m, dz, 1, w) for w in (0, 1)]
+                    _check(min(S) > 0, f"knot_solve B={B} N={N} P={P} {dtype}: no launch plan")
+                    ran.update(S)
+                    label = f"[{B},{N},{dz},{dz}] m={m} {dtype} P={P}"
+                    seeds = (None,) if f64 else (None, *QD_F32_SEEDS)
+                    for seed in seeds:
+                        r = rng if seed is None else np.random.default_rng(seed)
+                        (_, C, R, Cn, rhs), (Xi, fk), _, _, err_s, _ = _cr_accuracy(
+                            B, N, dz, m, dtype, r, label + ("" if seed is None else
+                                                            f" seed {seed}"), P,
+                            hold=("solve on its factors",))
+                    before = _kernels.LAUNCHES["knot_solve"]
+                    xk = sk.knot_condensed_solve(fk, rhs, P, dz)
+                    _check(_kernels.LAUNCHES["knot_solve"] == before + 1,
+                           f"knot_solve {label}: not one launch a call")
+                    x_cr = kkt.condensed_solve_plain(
+                        (Xi, kkt.condense_cr_factor_plain(Xi, C, R, Cn)), C, Cn, rhs, dz)
+                    rel_cr = _rel_err(xk, x_cr)[1]
+                    _check(rel_cr < (1e-9 if f64 else 1e-3),
+                           f"knot solve {label} vs cr rel err {rel_cr:.3e}")
+                    if N == 4 * P:
+                        _cr_nan(B, N, dz, m, dtype, P)
+                    ms = _time_ms(lambda: sk.knot_condensed_solve(fk, rhs, P, dz), reps)
+                    line.append(f"N={N} clusters {S[0]}/{S[1]} max_err={err_s:.2e} "
+                                f"vs cr {rel_cr:.1e} kernel_ms={ms:.4f}")
+                print(f"knot solve B={B} P={P} {dtype}: " + "; ".join(line), flush=True)
+    _check(ran >= {1, 2, 4, 8, 16}, f"knot_solve ran cluster sizes {sorted(ran)} only")
 
 
 def check_caps():
@@ -1148,7 +1273,7 @@ def _cr_factors(Xi, C, R, Cn, P=None, kernel=True):
 CR_PLANES = ("cr", "fT", "spike", "Ub", "f_if")
 
 
-def _cr_accuracy(B, N, dz, m, dtype, rng, label, P=None):
+def _cr_accuracy(B, N, dz, m, dtype, rng, label, P=None, hold=None):
     """K3's (P None) or K9's factor and solve against their plain versions
     on healthy inputs from rng (_qd_inputs), both from the same knot
     factors Xi of K1 (K1 is held by its own check). float64: every factor
@@ -1156,7 +1281,9 @@ def _cr_accuracy(B, N, dz, m, dtype, rng, label, P=None):
     relative of the plain version's. float32: each, the kernel's and the
     plain float32 version's, is held against the plain version in float64
     on the same inputs (Xi cast to float64), and the kernel's relative
-    error must be at most twice the plain version's (or 1e-6). Returns the
+    error must be at most twice the plain version's (or 1e-6); hold names
+    the float32 pairs held so ("factor", "solve", "solve on its factors"; all
+    by default), the others are printed. Returns the
     inputs, (Xi, the kernel's factor), the plain factor, the largest
     absolute differences of the factor and the solve from the plain
     version, and a note of the errors."""
@@ -1191,8 +1318,9 @@ def _cr_accuracy(B, N, dz, m, dtype, rng, label, P=None):
              "solve": (_rel_err(xk, x64)[1], _rel_err(xp, x64)[1]),
              "solve on its factors": (_rel_err(xk, x64o)[1], _rel_err(xo, x64o)[1])}
     for name, (k, pl) in pairs.items():
-        _check(k <= max(2 * pl, 1e-6), f"{what} {name} {label}: rel err vs float64 "
-               f"{k:.3e}, over twice the plain float32 version's {pl:.3e}")
+        if hold is None or name in hold:
+            _check(k <= max(2 * pl, 1e-6), f"{what} {name} {label}: rel err vs float64 "
+                   f"{k:.3e}, over twice the plain float32 version's {pl:.3e}")
     vs64 = ", ".join(f"{w} {k:.2e} (plain {pl:.2e})" for w, (k, pl) in pairs.items())
     print(f"{what} {label} vs float64: {vs64}; vs plain float32: factor {rel_f:.2e}, "
           f"solve {rel_s:.2e}, solve on its factors {rel_o:.2e}", flush=True)
@@ -1277,9 +1405,11 @@ def check_knot(B, N, dz, m, dtype, record, reps=5):
                f"{tol} on every factor plane; NaN mask of one indefinite dual block "
                f"equal; timed from the knot factors Xi (K1 excluded)",
                shape=f"B={B}, N={N}, P={P}, m={m}, dz={dz} {dtype}", variant=variant)
+        # (20 launches: a call's host time is near its device time, and 5
+        # read up to 1.8x the launch in one run)
         record("knot_solve", "piccolax_torch/csrc/knot.cu",
                "piccolax/parallel/sharded_kkt.py:194", err_s,
-               _time_ms(lambda: sk.knot_condensed_solve(fk, rhs, P, dz), reps),
+               _time_ms(lambda: sk.knot_condensed_solve(fk, rhs, P, dz), 20),
                _time_ms(lambda: sk.knot_condensed_solve_plain(fp, rhs, P, dz), reps),
                _bound(s_flops, s_bytes, dtype), None,
                f"{tol}; {how}; also against cr ({rel_cr:.1e})",
@@ -1353,6 +1483,19 @@ def _eigh_clamp(W, floor_rel):
     ew, V = torch.linalg.eigh(W)
     return (V * torch.clamp(ew, min=0)[..., None, :]) @ V.mT + \
         floor_rel * torch.eye(W.shape[-1], device=W.device, dtype=W.dtype)
+
+
+def _k1_raw_ms(A, reps=20):
+    """K1's launch alone (CUDA events around ctypes calls, no wrapper), the
+    least of two runs of reps."""
+    import torch
+    from piccolax_torch import _kernels
+    lib = _kernels.load("chol_inv")
+    Xi = torch.empty_like(A)
+    m = A.shape[-1]
+    args = (_kernels.is_f64(A), A.data_ptr(), Xi.data_ptr(), A.numel() // (m * m), m,
+            _kernels.stream_handle(A))
+    return min(_time_ms(lambda: lib.px_chol_inv_factor(*args), reps) for _ in range(2))
 
 
 def _library_chol_inv(A):
@@ -1902,8 +2045,10 @@ def main():
     check_qd(4, 2, 14, 12, "float32", record, reps=5, variant="N2_float32")
     check_qd_widths()
     check_cr_widths()
+    check_k1_widths()
     check_k2_widths()
     check_cr_solve_clusters()
+    check_knot_solve_clusters()
     check_caps()
     check_tri_lower_inv(record, reps=5)
     check_kernels(C3_B, C3_N, 44, 40, "float32", record, reps=5, clamp=(20, 3e-3),

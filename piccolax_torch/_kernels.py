@@ -85,6 +85,7 @@ _SIGNATURES = {
         "px_knot_factor": ([_C] + [_P] * 9 + [_C] * 5 + [_P], _C),
         "px_knot_solve": ([_C] + [_P] * 10 + [_C] * 6 + [_P], _C),
         "px_knot_tridiag_solve": ([_C] + [_P] * 10 + [_C] * 5 + [_P], _C),
+        "px_knot_solve_cluster": ([_C] * 8, _C),
     },
 }
 

@@ -2,9 +2,10 @@
 //
 // chol_inv is the device form of piccolax.solver.kkt.chol_inv_factor: the
 // lower-triangular Xi with A^{-1} = Xi^T Xi of one SPD block up to 64 wide,
-// its rows in registers, one warp up to 32 wide and two past it. K1
-// (chol_inv.cu) runs it on the knot blocks, K7 (qd.cu) along its recursion
-// and the cyclic-reduction factor below on every reduced diagonal block.
+// its rows in registers, one warp up to 32 wide and two past it. K7 (qd.cu)
+// runs it along its recursion and the cyclic-reduction factor below on
+// every reduced diagonal block; K1 (chol_inv.cu) runs the same arithmetic
+// with two rows a lane on a segment of a warp.
 //
 // block_gemm is a thread block's product of two small operands staged in
 // shared memory tiles, each entry's sum taken in the order of a plain loop.
@@ -18,10 +19,10 @@
 // the interiors of the knot partitions and on the interface systems.
 //
 // cr_solve_block is the device form of piccolax.solver.kkt.cr_solve: one
-// system's whole solve in one thread block (K9's solves, and K3's for
-// blocks up to 16 wide at one block a problem), and dual_rhs_knots /
-// primal_knots the condensed KKT's per-knot right-hand side and primal
-// recovery over a range of knots.
+// system's whole solve in one thread block (K3's for blocks up to 16 wide
+// at one block a problem; the cluster solves of K3 and K9 are
+// solve_engine.cuh's), and dual_rhs_knots / primal_knots the condensed
+// KKT's per-knot right-hand side and primal recovery of a problem.
 //
 // Under the compile-time switch PX_CR_TIMING (off by default) the factor's
 // kernels write clock64() and %globaltimer stamps of their first thread
@@ -1009,38 +1010,34 @@ __device__ T* cr_solve_block(const T* cr, T* A0, T* A1, T* rodd, T* tl, T* q2,
   return x;
 }
 
-// The dual right-hand side of knots [j0, j0 + L): t = Pinv r_z =
-// Xi^T (Xi r_z) over the range and its halo knot, then
-// b_k = C_k t_k - rc_k + Cn_k t_{k+1}. rhs [N, dz + m, r] (r_z over rc)
-// and the knot factors point at the problem's knot 0; q, t [L+1, dz, r]
-// and b [L, m, r] are local to the range. Called by every thread of the
-// block; returns with b written and visible.
+// The dual right-hand side of a problem's N knots: t = Pinv r_z =
+// Xi^T (Xi r_z), then b_k = C_k t_k - rc_k + Cn_k t_{k+1}. rhs [N, dz + m, r]
+// (r_z over rc); q, t [N, dz, r] and b [N, m, r]. Called by every thread of
+// the block; returns with b written and visible.
 template <typename T>
 __device__ void dual_rhs_knots(const T* Xi, const T* C, const T* Cn, const T* rhs,
-                               int N, int j0, int L, int m, int dz, int r,
-                               T* q, T* t, T* b) {
+                               int N, int m, int dz, int r, T* q, T* t, T* b) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int md = m * dz, dd = dz * dz, mr = m * r, dr = dz * r, mb = dz + m;
-  const int nT = (j0 + L < N) ? L + 1 : L;
-  for (int idx = tid; idx < nT * dr; idx += nt) {
+  for (int idx = tid; idx < N * dr; idx += nt) {
     const int kk = idx / dr, a = (idx / r) % dz, s = idx % r;
-    const long long j = j0 + kk;
+    const long long j = kk;
     acc_t<T> acc = 0;
     for (int e = 0; e < dz; ++e) acc += acc_t<T>(Xi[j * dd + a * dz + e]) * rhs[(j * mb + e) * r + s];
     q[idx] = acc;
   }
   __syncthreads();
-  for (int idx = tid; idx < nT * dr; idx += nt) {
+  for (int idx = tid; idx < N * dr; idx += nt) {
     const int kk = idx / dr, a = (idx / r) % dz, s = idx % r;
-    const long long j = j0 + kk;
+    const long long j = kk;
     acc_t<T> acc = 0;
     for (int e = 0; e < dz; ++e) acc += acc_t<T>(Xi[j * dd + e * dz + a]) * q[(kk * dz + e) * r + s];
     t[idx] = acc;
   }
   __syncthreads();
-  for (int idx = tid; idx < L * mr; idx += nt) {
+  for (int idx = tid; idx < N * mr; idx += nt) {
     const int kk = idx / mr, a = (idx / r) % m, s = idx % r;
-    const long long j = j0 + kk;
+    const long long j = kk;
     acc_t<T> acc = 0;
     for (int e = 0; e < dz; ++e) acc += acc_t<T>(C[j * md + a * dz + e]) * t[(kk * dz + e) * r + s];
     T v = acc - rhs[(j * mb + dz + a) * r + s];
@@ -1054,26 +1051,23 @@ __device__ void dual_rhs_knots(const T* Xi, const T* C, const T* Cn, const T* rh
   __syncthreads();
 }
 
-// The primal recovery of knots [j0, j0 + L) from their multipliers
-// lam [L, m, r]: w_k = r_z,k - C_k^T lam_k - Cn_{k-1}^T lam_{k-1} (lam_prev
-// [m, r] is knot j0 - 1's, unused at j0 = 0), z_k = Xi_k^T Xi_k w_k; out
-// [L, dz + m, r] (at knot j0) gets z over lam. The knot factors and rhs
-// point at the problem's knot 0; w, q [L, dz, r] are workspace. Called by
-// every thread of the block.
+// The primal recovery of a problem's N knots from their multipliers lam
+// [N, m, r]: w_k = r_z,k - C_k^T lam_k - Cn_{k-1}^T lam_{k-1},
+// z_k = Xi_k^T Xi_k w_k; out [N, dz + m, r] gets z over lam; w, q
+// [N, dz, r] are workspace. Called by every thread of the block.
 template <typename T>
 __device__ void primal_knots(const T* Xi, const T* C, const T* Cn, const T* rhs,
-                             const T* lam, const T* lam_prev, int j0, int L, int m,
-                             int dz, int r, T* w, T* q, T* out) {
+                             const T* lam, int N, int m, int dz, int r, T* w, T* q, T* out) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int md = m * dz, dd = dz * dz, mr = m * r, dr = dz * r, mb = dz + m;
-  for (int idx = tid; idx < L * dr; idx += nt) {
+  for (int idx = tid; idx < N * dr; idx += nt) {
     const int kk = idx / dr, a = (idx / r) % dz, s = idx % r;
-    const long long j = j0 + kk;
+    const long long j = kk;
     acc_t<T> a1 = 0;
     for (int e = 0; e < m; ++e) a1 += acc_t<T>(C[j * md + e * dz + a]) * lam[(kk * m + e) * r + s];
     T v = rhs[(j * mb + a) * r + s] - a1;
     if (j > 0) {
-      const T* lp = kk > 0 ? lam + (kk - 1) * mr : lam_prev;
+      const T* lp = lam + (kk - 1) * mr;
       acc_t<T> a2 = 0;
       for (int e = 0; e < m; ++e) a2 += acc_t<T>(Cn[(j - 1) * md + e * dz + a]) * lp[e * r + s];
       v -= a2;
@@ -1081,17 +1075,17 @@ __device__ void primal_knots(const T* Xi, const T* C, const T* Cn, const T* rhs,
     w[idx] = v;
   }
   __syncthreads();
-  for (int idx = tid; idx < L * dr; idx += nt) {
+  for (int idx = tid; idx < N * dr; idx += nt) {
     const int kk = idx / dr, a = (idx / r) % dz, s = idx % r;
-    const long long j = j0 + kk;
+    const long long j = kk;
     acc_t<T> acc = 0;
     for (int e = 0; e < dz; ++e) acc += acc_t<T>(Xi[j * dd + a * dz + e]) * w[(kk * dz + e) * r + s];
     q[idx] = acc;
   }
   __syncthreads();
-  for (int idx = tid; idx < L * mb * r; idx += nt) {
+  for (int idx = tid; idx < N * mb * r; idx += nt) {
     const int kk = idx / (mb * r), row = (idx / r) % mb, s = idx % r;
-    const long long j = j0 + kk;
+    const long long j = kk;
     T v;
     if (row < dz) {
       acc_t<T> acc = 0;

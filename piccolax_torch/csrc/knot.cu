@@ -23,11 +23,16 @@
 //           interface rows, a row group a partition; the interface
 //           systems' CR factors (once per problem, where JAX repeats it on
 //           every device);
-//   solve  (c1) grid P x B: t = Pinv r_z over the partition and its halo,
-//              the dual rhs b, the interior solve, the interface rhs;
-//          (c2) grid B: the interface solve;
-//          (c3) grid P x B: x_int, lambda and the primal back-substitution
-//              w -> z, reading the previous partition's last multiplier.
+//   solve  three launches of solve_engine.cuh's cluster kernel (the engine
+//          of K3's solve), each planned from the card's SM count:
+//          (c1) a cluster a partition and problem: t = Pinv r_z over the
+//              partition and its halo, the dual rhs b, the interior's CR
+//              solve, the interface rhs r_f, r_l;
+//          (c2) a cluster a problem: the interface system's CR solve;
+//          (c3) a cluster a partition and problem: lambda (x_f, x_l and
+//              x_int = r_sol - S_f x_f - S_l x_l), then the primal
+//              back-substitution w -> z, reading the previous partition's
+//              last multiplier.
 // The standalone block-tridiagonal solve (given diag and upper) runs the
 // same kernels without the condensation and the primal part.
 //
@@ -44,19 +49,25 @@
 // float64). A factor is 5 log2 Npk + 2 log2 Npi + 6 launches in one call
 // (39 at N = 200, P = 8).
 //
-// The solve runs each partition (c1, c3) and each interface (c2) in one
-// thread block through cr_solve_block.
+// The solve: measured on the earlier design (one thread block of 256 a
+// partition for c1 and c3, one a problem for c2, each through common.cuh's
+// cr_solve_block; scripts/cr_phase_timing.py --knot-solve), a launch put
+// P B (c1, c3) or B (c2) SMs to work, each CR level's work on one of them.
+// Here each partition's interior solve and each interface solve run on a
+// cluster of up to 16 SMs, the knot-range work (the dual rhs with its
+// halo, x_int, the primal) spread over the cluster's blocks by knot, and
+// every block stages its blocks by cp.async (solve_engine.cuh). The
+// interface needs every partition's r_f and r_l, so it stays a launch
+// boundary; the multipliers before the primal are a cluster barrier.
 //
 // Factor layout (shared with the plain version, parallel/sharded_kkt.py):
 // fT [B, P, 3, Npk, m, m] the interior CR factors (Npk = k padded to a power
 // of two), spike [B, P, k, m, 2m] = T^{-1} [e_1 U_f^T | e_k U_l],
 // Ub [B, P, 2, m, m] = (U_f, U_l), f_if [B, 3, Npi, m, m] the interface CR
 // factor (Npi = 2P padded).
-#include "common.cuh"
+#include "solve_engine.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 __host__ __device__ inline int pow2_at_least(int n) {
   int p = 1;
@@ -85,20 +96,16 @@ struct Dims {
            S() * (Npk > 1 ? Npk / 2 : 1) * m * 2 * m + 4LL * B * P * m * m +
            px::cr_factor_ws(B, Npi, m);
   }
-  // Solve workspace: per partition t, q [L+1, dz, r], b [L, m, r], the
-  // interior CR solve's, the interior solution [k, m, r], lambda [L, m, r]
-  // and w [L, dz, r]; then per problem the interface CR solve's, whose
-  // first rows receive the gathered interface rhs, and the interface
-  // solution [2P, m, r].
-  __host__ __device__ long long spart(int r) const {
-    return 2LL * (L + 1) * dz * r + 2LL * L * m * r + px::cr_solve_ws_elems(Npk, m, r) +
-           (long long)k * m * r + (long long)L * dz * r;
+  // Solve workspace (solve_engine.cuh's SolveArgs), a column: per
+  // partition the interior's level vectors V, Y [2 Npk - 1, m], b_f, b_l
+  // [2, m] and the multipliers [L + 1, m]; then per problem the interface
+  // system's V, Y [2 Npi - 1, m], whose level 0 receives the interface rhs.
+  __host__ __device__ long long spart() const {
+    return 2LL * (2 * Npk - 1) * m + 2LL * m + (L + 1LL) * m;
   }
-  __host__ __device__ long long sif(int r) const {
-    return px::cr_solve_ws_elems(Npi, m, r) + 2LL * P * m * r;
-  }
+  __host__ __device__ long long sif() const { return 2LL * (2 * Npi - 1) * m; }
   __host__ __device__ long long sws(int r) const {
-    return (long long)B * (P * spart(r) + sif(r));
+    return (long long)B * r * (P * spart() + sif());
   }
 };
 
@@ -316,130 +323,6 @@ __global__ void iface_rows_kernel(px::Knots<T> kn, const T* __restrict__ spike,
   PX_CR_END();
 }
 
-// (c1) local rhs and interior solve. kCond: rhs [B, N, dz + m, r] of the
-// condensed KKT; otherwise rhs [B, N, m, r] of the block-tridiagonal system.
-template <typename T, bool kCond>
-__global__ void knot_solve_local_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
-                                        const T* __restrict__ Cn_g, const T* __restrict__ fT_g,
-                                        const T* __restrict__ Ub_g, const T* __restrict__ rhs_g,
-                                        T* __restrict__ ws_g, Dims g, int r) {
-  const int p = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
-  const int N = g.N, P = g.P, L = g.L, k = g.k, Npk = g.Npk, m = g.m, dz = g.dz;
-  const int mm = m * m, md = m * dz, dd = dz * dz, mr = m * r, dr = dz * r;
-  const int mb = kCond ? dz + m : m;
-  const int j0 = p * L;
-  T* ws = ws_g + ((long long)b * P + p) * g.spart(r);
-  T* t = ws;                               // [L+1, dz, r]
-  T* q = t + (long long)(L + 1) * dr;      // [L+1, dz, r]
-  T* bv = q + (long long)(L + 1) * dr;     // [L, m, r]
-  T* A0 = bv + (long long)L * mr;          // interior CR solve workspace
-  T* A1 = A0 + (long long)Npk * mr;
-  T* rodd = A1 + (long long)Npk * mr;
-  T* tl = rodd + (long long)Npk * mr;
-  T* q2 = tl + (long long)(Npk / 2) * mr;
-  T* rs = A0 + px::cr_solve_ws_elems(Npk, m, r);  // [k, m, r]
-  T* Aif = ws_g + (long long)g.B * P * g.spart(r) + (long long)b * g.sif(r);
-  const T* fT = fT_g + ((long long)b * P + p) * 3 * Npk * mm;
-  const T* Uf = Ub_g + ((long long)b * P + p) * 2 * mm;
-  const T* Ul = Uf + mm;
-  const T* rhs = rhs_g + (long long)b * N * mb * r;
-
-  if (kCond) {
-    px::dual_rhs_knots<T>(Xi_g + (long long)b * N * dd, C_g + (long long)b * N * md,
-                          Cn_g + (long long)b * (N - 1) * md, rhs, N, j0, L, m, dz, r,
-                          q, t, bv);
-  } else {
-    for (int idx = tid; idx < L * mr; idx += nt) bv[idx] = rhs[(long long)j0 * mr + idx];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < Npk * mr; idx += nt)
-    A0[idx] = idx < k * mr ? bv[mr + idx] : T(0);
-  __syncthreads();
-  const T* x = px::cr_solve_block<T>(fT, A0, A1, rodd, tl, q2, Npk, m, r);
-  for (int idx = tid; idx < k * mr; idx += nt) rs[idx] = x[idx];
-  const T* x_last = x + (long long)(k - 1) * mr;
-  for (int idx = tid; idx < mr; idx += nt) {
-    const int a = idx / r, s = idx % r;
-    px::acc_t<T> s1 = 0, s2 = 0;
-    for (int e = 0; e < m; ++e) {
-      s1 += px::acc_t<T>(Uf[a * m + e]) * x[e * r + s];
-      s2 += px::acc_t<T>(Ul[e * m + a]) * x_last[e * r + s];
-    }
-    Aif[(2LL * p) * mr + idx] = bv[idx] - s1;
-    Aif[(2LL * p + 1) * mr + idx] = bv[(L - 1) * mr + idx] - s2;
-  }
-}
-
-// (c2) the interface solve: rows past 2P zero.
-template <typename T>
-__global__ void knot_if_solve_kernel(const T* __restrict__ fif_g, T* __restrict__ ws_g,
-                                     Dims g, int r) {
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int m = g.m, mr = m * r, Npi = g.Npi, P = g.P;
-  T* A0 = ws_g + (long long)g.B * P * g.spart(r) + (long long)b * g.sif(r);
-  T* A1 = A0 + (long long)Npi * mr;
-  T* rodd = A1 + (long long)Npi * mr;
-  T* tl = rodd + (long long)Npi * mr;
-  T* q2 = tl + (long long)(Npi / 2) * mr;
-  T* xif = A0 + px::cr_solve_ws_elems(Npi, m, r);
-  for (int idx = 2 * P * mr + tid; idx < Npi * mr; idx += nt) A0[idx] = T(0);
-  __syncthreads();
-  const T* x = px::cr_solve_block<T>(fif_g + (long long)b * 3 * Npi * m * m, A0, A1, rodd,
-                                     tl, q2, Npi, m, r);
-  for (int idx = tid; idx < 2 * P * mr; idx += nt) xif[idx] = x[idx];
-}
-
-// (c3) x_int and lambda; kCond: the primal back-substitution and out
-// [B, N, dz + m, r], else out = lambda [B, N, m, r].
-template <typename T, bool kCond>
-__global__ void knot_solve_back_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
-                                       const T* __restrict__ Cn_g, const T* __restrict__ spike_g,
-                                       const T* __restrict__ rhs_g, T* __restrict__ out_g,
-                                       T* __restrict__ ws_g, Dims g, int r) {
-  const int p = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
-  const int N = g.N, P = g.P, L = g.L, k = g.k, Npk = g.Npk, m = g.m, dz = g.dz;
-  const int md = m * dz, dd = dz * dz, mr = m * r, dr = dz * r, m2 = 2 * m;
-  const int mb = kCond ? dz + m : m;
-  const int j0 = p * L;
-  T* ws = ws_g + ((long long)b * P + p) * g.spart(r);
-  T* q = ws + (long long)(L + 1) * dr;
-  T* rs = ws + 2LL * (L + 1) * dr + (long long)L * mr + px::cr_solve_ws_elems(Npk, m, r);
-  T* lam = rs + (long long)k * mr;         // [L, m, r]
-  T* w = lam + (long long)L * mr;          // [L, dz, r]
-  const T* xif = ws_g + (long long)g.B * P * g.spart(r) + (long long)b * g.sif(r) +
-                 px::cr_solve_ws_elems(g.Npi, m, r);
-  const T* x_f = xif + (2LL * p) * mr;
-  const T* x_l = x_f + mr;
-  const T* spike = spike_g + ((long long)b * P + p) * k * m * m2;
-  T* out = out_g + (long long)b * N * mb * r;
-
-  for (int idx = tid; idx < L * mr; idx += nt) {
-    const int kk = idx / mr, a = (idx / r) % m, s = idx % r;
-    T v;
-    if (kk == 0) {
-      v = x_f[a * r + s];
-    } else if (kk == L - 1) {
-      v = x_l[a * r + s];
-    } else {
-      const T* sp = spike + (long long)(kk - 1) * m * m2 + a * m2;
-      px::acc_t<T> s1 = 0, s2 = 0;
-      for (int e = 0; e < m; ++e) {
-        s1 += px::acc_t<T>(sp[e]) * x_f[e * r + s];
-        s2 += px::acc_t<T>(sp[m + e]) * x_l[e * r + s];
-      }
-      v = (rs[(kk - 1) * mr + a * r + s] - s1) - s2;
-    }
-    if (kCond) lam[idx] = v;
-    else out[(long long)j0 * mr + idx] = v;
-  }
-  if (!kCond) return;
-  __syncthreads();
-  // lam_{j0-1} is the previous partition's x_l
-  px::primal_knots<T>(Xi_g + (long long)b * N * dd, C_g + (long long)b * N * md,
-                      Cn_g + (long long)b * (N - 1) * md, rhs_g + (long long)b * N * mb * r,
-                      lam, x_f - mr, j0, L, m, dz, r, w, q, out + (long long)j0 * mb * r);
-}
-
 // The factor's launches. kCond: D and U condensed from the knot factors
 // Xi, C, R and Cn; otherwise read from diag [B, N, m, m] and upper
 // [B, N-1, m, m].
@@ -528,23 +411,94 @@ int launch_factor(const void* Xi, const void* C, const void* R, const void* Cn,
       g.B, g.Npi, m, (T*)fif, 3LL * g.Npi * mm, wif, st PX_CR_ARG(stamps));
 }
 
-// Launches (c1), (c2), (c3).
+#ifdef PX_CR_TIMING
+// the last solve's launches: thread blocks, cluster size, shared memory a block
+inline long long g_knot_config[9] = {0};
+#endif
+
+// The three launches' plans (c1 and c3: B P r clusters; c2: B r), into S,
+// bytes and cfg, with the kernel's shared memory set to the largest.
+template <typename T>
+int plan_knot(const Dims& g, int dz, int r, int (&S)[2], long long (&bytes)[2],
+              cudaLaunchConfig_t (&cfg)[2], cudaLaunchAttribute (&attr)[2][1]) {
+  for (int i = 0; i < 2; ++i)
+    if (int e = px::plan_solve<T, true>((long long)(i == 0 ? g.B * g.P : g.B) * r, g.m, dz,
+                                        false, S[i], bytes[i], cfg[i], attr[i]))
+      return e;
+  return px::smem_for(px::solve_kernel<T, true>,
+                      (size_t)(bytes[0] > bytes[1] ? bytes[0] : bytes[1]));
+}
+
+// Launches (c1), (c2), (c3). kCond: the condensed KKT, rhs / out
+// [B, N, dz + m, r]; else the block-tridiagonal system, rhs / out [B, N, m, r].
 template <typename T, bool kCond>
 int launch_solve(const void* Xi, const void* C, const void* Cn, const void* fT,
                  const void* spike, const void* Ub, const void* fif, const void* rhs,
-                 void* out, void* ws, const Dims& g, int r, cudaStream_t st) {
-  knot_solve_local_kernel<T, kCond><<<dim3(g.P, g.B), kThreads, 0, st>>>(
-      (const T*)Xi, (const T*)C, (const T*)Cn, (const T*)fT, (const T*)Ub, (const T*)rhs,
-      (T*)ws, g, r);
-  int rc = (int)cudaGetLastError();
+                 void* out, void* ws, const Dims& g, int r, cudaStream_t st PX_CR_PARAM) {
+  const int dz = kCond ? g.dz : 0, m = g.m;
+  int S[2];
+  long long bytes[2];
+  cudaLaunchConfig_t cfg[2];
+  cudaLaunchAttribute attr[2][1];
+  if (int e = plan_knot<T>(g, dz, r, S, bytes, cfg, attr)) return e;
+  T* part = static_cast<T*>(ws);
+  T* iface = part + (long long)g.B * g.P * r * g.spart();
+  px::SolveArgs<T> a{};
+  a.Xi = static_cast<const T*>(Xi);
+  a.C = static_cast<const T*>(C);
+  a.Cn = static_cast<const T*>(Cn);
+  a.rhs = static_cast<const T*>(rhs);
+  a.out = static_cast<T*>(out);
+  a.N = g.N; a.m = m; a.dz = dz; a.r = r; a.P = g.P; a.L = g.L;
+  a.Ub = static_cast<const T*>(Ub);
+  a.ifws = iface;
+  a.ifwss = g.sif();
+  a.Npi = g.Npi;
+  // (c1) dual, the interior's CR (k rows, padded to Npk), rf/rl
+  px::SolveArgs<T> a1 = a;
+  a1.cr = static_cast<const T*>(fT);
+  a1.crs = 3LL * g.Npk * m * m;
+  a1.ws = part;
+  a1.wss = g.spart();
+  a1.Np = g.Npk;
+  a1.S = S[0];
+  a1.nrows = g.k;
+  a1.head = px::kDual;
+  a1.tail = px::kIfRhs;
+  // (c2) the interface systems (2P rows, padded to Npi), a cluster a problem
+  px::SolveArgs<T> a2 = a;
+  a2.cr = static_cast<const T*>(fif);
+  a2.crs = 3LL * g.Npi * m * m;
+  a2.ws = iface;
+  a2.wss = g.sif();
+  a2.Np = g.Npi;
+  a2.S = S[1];
+  a2.P = 1;
+  a2.L = 0;
+  a2.nrows = 2 * g.P;
+  a2.head = px::kNone;
+  a2.tail = px::kNone;
+  // (c3) x_int (the standalone system: out), the primal
+  px::SolveArgs<T> a3 = a1;
+  a3.cr = nullptr;
+  a3.spike = static_cast<const T*>(spike);
+  a3.head = px::kSpike;
+  a3.tail = kCond ? px::kPrimal : px::kNone;
+#ifdef PX_CR_TIMING
+  for (int i = 0; i < 3; ++i) {
+    const int q = i == 1;
+    g_knot_config[3 * i] = (long long)cfg[q].gridDim.x;
+    g_knot_config[3 * i + 1] = S[q];
+    g_knot_config[3 * i + 2] = bytes[q];
+  }
+#endif
+  int rc = px::launch_planned<T, true>(cfg[0], r, a1, bytes[0], st PX_CR_ARG(stamps));
   if (rc) return rc;
-  knot_if_solve_kernel<T><<<g.B, kThreads, 0, st>>>((const T*)fif, (T*)ws, g, r);
-  rc = (int)cudaGetLastError();
+  rc = px::launch_planned<T, true>(cfg[1], r, a2, bytes[1], st
+                             PX_CR_ARG(stamps ? stamps + 256 : nullptr));
   if (rc) return rc;
-  knot_solve_back_kernel<T, kCond><<<dim3(g.P, g.B), kThreads, 0, st>>>(
-      (const T*)Xi, (const T*)C, (const T*)Cn, (const T*)spike, (const T*)rhs, (T*)out,
-      (T*)ws, g, r);
-  return (int)cudaGetLastError();
+  return px::launch_planned<T, true>(cfg[0], r, a3, bytes[0], st
+                               PX_CR_ARG(stamps ? stamps + 512 : nullptr));
 }
 
 bool valid(int B, int N, int P, int m, int dz) {
@@ -555,7 +509,8 @@ bool valid(int B, int N, int P, int m, int dz) {
 }  // namespace
 
 // Workspace elements of a factor / a solve of B problems (dz = 0: the
-// standalone block-tridiagonal system).
+// standalone block-tridiagonal system; the solve's workspace does not
+// depend on dz).
 extern "C" long long px_knot_factor_ws(int B, int N, int P, int m, int dz) {
   return Dims(B, N, P, m, dz).fws();
 }
@@ -582,17 +537,36 @@ extern "C" int px_knot_factor(int is_f64, const void* Xi, const void* C, const v
 }
 
 // Solve of the condensed KKT, rhs / out [B, N, dz + m, r].
+// (Under PX_CR_TIMING the stamps buffer follows the stream: 256 slots a
+// launch, as solve_engine.cuh's kSubStamps says.)
 extern "C" int px_knot_solve(int is_f64, const void* Xi, const void* C, const void* Cnext,
                              const void* fT, const void* spike, const void* Ub,
                              const void* fif, const void* rhs, void* out, void* ws, int B,
-                             int N, int P, int m, int dz, int r, void* stream) {
-  if (!valid(B, N, P, m, dz) || dz < 1 || r < 1) return (int)cudaErrorInvalidValue;
+                             int N, int P, int m, int dz, int r, void* stream PX_CR_PARAM) {
+  if (!valid(B, N, P, m, dz) || dz < 1 || dz > px::kMaxCholM || r < 1)
+    return (int)cudaErrorInvalidValue;
   const Dims g(B, N, P, m, dz);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_solve<double, true>(Xi, C, Cnext, fT, spike, Ub, fif, rhs, out, ws,
-                                             g, r, st)
+                                             g, r, st PX_CR_ARG(stamps))
                 : launch_solve<float, true>(Xi, C, Cnext, fT, spike, Ub, fif, rhs, out, ws,
-                                            g, r, st);
+                                            g, r, st PX_CR_ARG(stamps));
+}
+
+// The cluster sizes a solve of B problems, P partitions and r columns
+// launches with on the current card: (c1) and (c3)'s, a partition, if
+// which is 0, (c2)'s, a problem, if 1; -1 on an error.
+extern "C" int px_knot_solve_cluster(int is_f64, int B, int N, int P, int m, int dz, int r,
+                                     int which) {
+  if (!valid(B, N, P, m, dz) || r < 1 || which < 0 || which > 1) return -1;
+  const Dims g(B, N, P, m, dz);
+  int S[2];
+  long long bytes[2];
+  cudaLaunchConfig_t cfg[2];
+  cudaLaunchAttribute attr[2][1];
+  const int e = is_f64 ? plan_knot<double>(g, dz, r, S, bytes, cfg, attr)
+                       : plan_knot<float>(g, dz, r, S, bytes, cfg, attr);
+  return e ? -1 : S[which];
 }
 
 // The SPD block-tridiagonal system diag [B, N, m, m], upper
@@ -611,12 +585,18 @@ extern "C" int px_knot_tridiag_solve(int is_f64, const void* diag, const void* u
                                                 fT, spike, Ub, fif, fws, g, st PX_CR_ARG(nullptr));
   if (rc) return rc;
   return is_f64 ? launch_solve<double, false>(nullptr, nullptr, nullptr, fT, spike, Ub, fif,
-                                              rhs, out, sws, g, r, st)
+                                              rhs, out, sws, g, r, st PX_CR_ARG(nullptr))
                 : launch_solve<float, false>(nullptr, nullptr, nullptr, fT, spike, Ub, fif,
-                                             rhs, out, sws, g, r, st);
+                                             rhs, out, sws, g, r, st PX_CR_ARG(nullptr));
 }
 
 #ifdef PX_CR_TIMING
+// The last solve's launches (c1, c2, c3): thread blocks, cluster size and
+// shared memory a block, into out[0..8].
+extern "C" void px_knot_solve_config(long long* out) {
+  for (int i = 0; i < 9; ++i) out[i] = g_knot_config[i];
+}
+
 // The kinds of the last timed factor's launches (kind + 256 level: 0 the
 // condensation, 1-3 a CR elimination, update and root, 5-8 the SPIKE
 // solve's odd and even reductions, root and back-substitution, 9 the

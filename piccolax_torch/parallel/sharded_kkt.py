@@ -21,8 +21,9 @@ Where piccolax shards the knot axis over a `Mesh` axis, the port takes
 function keeps the partition as a tensor axis [B, P, L, ...]: the
 all_gather is a reshape to [B, 2P, ...], each ppermute a shift along P
 with zero fill. The wrappers run the plain version for tensors on the CPU
-and launch K9 (`csrc/knot.cu`, one thread block per partition and
-problem) for tensors on the card.
+and launch K9 (`csrc/knot.cu`) for tensors on the card: the factor a
+launch per step and level, the solve three launches of thread-block
+clusters (a cluster per partition and problem, then per problem).
 
 Factor layout (shared by the plain versions and the kernel): a dict with
 the knot factors Xi [B, N, dz, dz] (condensed form only), C and Cnext as
@@ -140,8 +141,8 @@ def batched_sharded_spd_tridiag_solve(diag, upper, rhs, mesh):
     batch axis is the kernel's grid and needs no divisibility.
 
     Replaces piccolax/parallel/sharded_kkt.py:277 (body
-    _local_partition_solve :64). One K9 factor and one K9 solve, P x B
-    thread blocks each (csrc/knot.cu).
+    _local_partition_solve :64). One K9 factor and one K9 solve
+    (csrc/knot.cu), one C call counted as one launch.
     """
     if not _cuda_or_cpu(diag, "batched_sharded_spd_tridiag_solve"):
         return batched_sharded_spd_tridiag_solve_plain(diag, upper, rhs, mesh)
@@ -308,8 +309,12 @@ def knot_condensed_solve(factors, rhs, mesh, dz):
     shape.
 
     Replaces piccolax/parallel/sharded_kkt.py:259 (body _knot_solve_body
-    :194): one K9 solve, three kernel launches (the partitions' local
-    solves, the interface solve, the back-substitution).
+    :194): one K9 solve, three launches of csrc/solve_engine.cuh's cluster
+    kernel, counted as one: (c1) a thread-block cluster a partition and
+    problem runs the dual rhs, the interior's CR solve and the interface
+    rows; (c2) a cluster a problem, the interface solve; (c3) a cluster a
+    partition and problem, x_int and the primal recovery. The cluster sizes
+    are planned from the card's SM count (`px_knot_solve_cluster`).
     """
     if not _cuda_or_cpu(rhs, "knot_condensed_solve"):
         return knot_condensed_solve_plain(factors, rhs, mesh, dz)

@@ -84,8 +84,10 @@ def chol_inv_factor(A):
     """K1: Xi with A^{-1} = Xi^T Xi for SPD A [..., m, m], m <= 64.
 
     Replaces piccolax/solver/kkt.py: chol_inv_factor. Bound on the H100:
-    bytes (one read of A, one write of Xi). One warp per block, the block
-    in shared memory, a lane owning rows i and i + 32; see csrc/chol_inv.cu.
+    bytes (one read of A, one write of Xi). A block on an H-lane segment of
+    a warp (H = 8 up to 16 wide, 16 up to 32, 32 past it), a lane owning
+    rows l and l + H in registers, the pivots broadcast by shuffles; see
+    csrc/chol_inv.cu.
     """
     if not _cuda_or_cpu(A, "chol_inv_factor"):
         return chol_inv_factor_plain(A)

@@ -26,6 +26,20 @@ thread block a problem, or a partition, whose clock64() stamps split it
 into the condensation, each level's Cholesky inverses, Gl/Gr and Dn/Un
 products, and K9's SPIKE solve and interface rows).
 
+--knot-solve times K9's condensed solve (csrc/knot.cu alone, from
+factors made by the plain version) at ck8's shapes (B = 1, float64, P = 8
+and 4) and at B = 16, float32, P = 8: the solve's time (CUDA events), its
+largest relative difference from the plain solve and, for each of its
+three launches ((c1) the partitions' dual right-hand sides, interior CR
+solves and interface rows; (c2) the interface solves; (c3) x_int and the
+primal recovery), its thread blocks and cluster size, the first block's
+span from start to end (%globaltimer) and its clock64() cycles by phase
+(each stamp taken after the phase's barrier). With --baseline DIR (commit
+9e52288's piccolax_torch/csrc: mkdir -p .chipcheck/pr9 && git archive
+9e52288 piccolax_torch/csrc | tar -x -C .chipcheck/pr9) it first times
+that commit's one-block-a-partition solve through
+scripts/cr_timing/pr9_knot_solve_stamps.patch.
+
 --solve times K3's condensed solve instead (csrc/cr_solve.cu alone, from
 factors made by the plain version): at the same four shapes, the solve's
 time (CUDA events), its largest relative difference from the plain solve
@@ -60,6 +74,7 @@ sys.path.insert(0, str(ROOT))
 CSRC = ROOT / "piccolax_torch" / "csrc"
 BASELINE_PATCH = ROOT / "scripts" / "cr_timing" / "pr6_stamps.patch"
 SOLVE_PATCH = ROOT / "scripts" / "cr_timing" / "pr7_solve_stamps.patch"
+KNOT_SOLVE_PATCH = ROOT / "scripts" / "cr_timing" / "pr9_knot_solve_stamps.patch"
 SOURCES = ("condensed_cr", "knot")
 # K3: (B, N, dz, m, dtype): config 3, the CNOT, the batched quickstart,
 # config 1. K9: the CNOT's blocks, P = 8 and 4, both types.
@@ -67,6 +82,11 @@ K3_SHAPES = [(16, 200, 44, 40, "float32"), (1, 200, 44, 40, "float64"),
              (256, 100, 15, 13, "float64"), (256, 50, 14, 12, "float32")]
 K9_SHAPES = [(1, 200, 44, 40, "float64", 8), (1, 200, 44, 40, "float64", 4),
              (16, 200, 44, 40, "float32", 8), (16, 200, 44, 40, "float32", 4)]
+# K9's solve: the CNOT's blocks, B = 1 float64 at P = 8 and 4 (ck8's
+# shapes), B = 16 float32 at P = 8
+K9_SOLVE_SHAPES = [(1, 200, 44, 40, "float64", 8), (1, 200, 44, 40, "float64", 4),
+                   (16, 200, 44, 40, "float32", 8)]
+KNOT_LAUNCH = 256  # stamp slots of each of K9's solve launches
 STAMPS = 8192  # int64 slots of a call's buffer (8 a launch in the current design)
 SUB = 64       # the solve's first sub-phase stamp (cr_solve.cu: kSubStamps)
 
@@ -394,9 +414,6 @@ def report(name, libs, baseline, cyc_note):
             print(f"    {gname}: {total} cycles ({total / cyc_note:.1f} us at "
                   f"{cyc_note:.0f}/us): {share}", flush=True)
             print("      " + ", ".join(f"{n} {c}" for n, c in ph), flush=True)
-        if sub:
-            print("      first chunk (load/mv1/mv2/mv3/rest): " + "; ".join(
-                f"{n} " + "/".join(str(x) for x in cyc) for n, cyc in sub if cyc), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +507,7 @@ def report_solve(name, src_dir, out_dir, baseline, cyc_per_us):
         if "solve" in kern:
             print(f"  ptxas: {kern}: {regs} registers, {spill} bytes spilled, "
                   f"{frame} bytes stack frame", flush=True)
-    for fn, top in sass_hist(so, "condensed_solve"):
+    for fn, top in sass_hist(so, "solve_kernel"):
         print(f"  sass {fn}: {top}", flush=True)
     lib = ctypes.CDLL(str(so))
     I_, P_, L_ = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
@@ -545,6 +562,121 @@ def report_solve(name, src_dir, out_dir, baseline, cyc_per_us):
                 f"{n} " + "/".join(str(x) for x in cyc) for n, cyc in sub if cyc), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# --knot-solve: K9's solve by launch and phase
+# ---------------------------------------------------------------------------
+
+
+def knot_solve_names(N: int, P: int, baseline: bool):
+    """(launch, {stamp slot: phase}) of K9's three solve launches."""
+    from piccolax_torch.solver.kkt import _pow2_pad
+    Lk, Li = levels(_pow2_pad(N // P - 2)), levels(_pow2_pad(2 * P))
+
+    def cr(L, tag):
+        return ([f"{tag}down{lv}" for lv in range(L)] + [f"{tag}root"]
+                + [f"{tag}up{lv}" for lv in reversed(range(L))])
+    if baseline:          # one block a partition (c1, c3) and a problem (c2)
+        return [("c1", {1: "dual", 2: "copy", **{3 + i: n for i, n in enumerate(cr(Lk, ""))},
+                        61: "rf/rl"}),
+                ("c2", {1: "zero", **{2 + i: n for i, n in enumerate(cr(Li, "if."))},
+                        61: "copy"}),
+                ("c3", {1: "x_int", 61: "primal"})]
+    return [("c1", {1: "dual", **{2 + i: n for i, n in enumerate(cr(Lk, ""))},
+                    3 + 2 * Lk: "rf/rl"}),
+            ("c2", {1 + i: n for i, n in enumerate(cr(Li, "if."))}),
+            ("c3", {1: "x_int and primal"})]
+
+
+def run_knot_solve(lib, B, N, dz, m, dtype, P, baseline, reps):
+    """One shape: (ms, rel err vs plain, [(launch, span us, [(phase, cycles)])],
+    launch configs or None)."""
+    import torch
+    from chip_smoke import _qd_inputs
+    from piccolax_torch.parallel import sharded_kkt as sk
+    from piccolax_torch.solver import kkt
+    rng = np.random.default_rng(41)
+    Pm, C, R, Cn, rhs = _qd_inputs(B, N, dz, m, dtype, rng)
+    Xi = kkt.chol_inv_factor_plain(Pm).contiguous()
+    f = {k: v.contiguous() if torch.is_tensor(v) else v
+         for k, v in sk.knot_condense_factor_plain(Xi, C, R, Cn, P).items()}
+    r = rhs.shape[-1]
+    out = torch.empty_like(rhs)
+    ws = torch.empty(lib.px_knot_solve_ws(B, N, P, m, dz, r), dtype=rhs.dtype, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    st = torch.full((STAMPS,), -1, dtype=torch.int64, device="cuda")
+    lead = [int(dtype == "float64"), Xi.data_ptr(), C.data_ptr(), Cn.data_ptr(),
+            f["fT"].data_ptr(), f["spike"].data_ptr(), f["Ub"].data_ptr(), f["f_if"].data_ptr(),
+            rhs.data_ptr(), out.data_ptr(), ws.data_ptr(), B, N, P, m, dz, r]
+
+    def call(ptr):
+        rc = lib.px_knot_solve(*lead, stream, ptr)
+        if rc:
+            raise RuntimeError(f"px_knot_solve failed: {rc}")
+
+    call(None)
+    call(st.data_ptr())
+    torch.cuda.synchronize()
+    ref = sk.knot_condensed_solve_plain(f, rhs, P, dz)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    cfg = None
+    if not baseline:
+        c = (ctypes.c_longlong * 9)()
+        lib.px_knot_solve_config(c)
+        cfg = [tuple(c[3 * i: 3 * i + 3]) for i in range(3)]
+    ms = time_ms(lambda: call(None), reps)
+    s = st.cpu().numpy()
+    launches = []
+    for q, (name, slots) in enumerate(knot_solve_names(N, P, baseline)):
+        b = s[q * KNOT_LAUNCH: (q + 1) * KNOT_LAUNCH]
+        prev, ph, sub = b[0], [], []
+        for slot in sorted(slots):
+            if b[slot] >= 0:
+                ph.append((slots[slot], int(b[slot] - prev)))
+                if not baseline:      # the engine's first chunk of phase slot - 1
+                    marks = [int(x) for x in b[SUB + 4 * (slot - 1): SUB + 4 * slot]]
+                    seq = [int(prev)] + marks + [int(b[slot])]
+                    if all(x >= 0 for x in marks):
+                        sub.append((slots[slot], [seq[i + 1] - seq[i] for i in range(5)]))
+                prev = b[slot]
+        launches.append((name, (b[63] - b[62]) / 1e3, ph, sub))
+    return ms, rel, launches, cfg
+
+
+def report_knot_solve(name, libs, built_s, baseline, cyc_per_us, reps=10):
+    print(f"== {name}: built in {built_s:.1f} s", flush=True)
+    so, log = libs["knot"]
+    for kern, regs, spill, frame in ptxas_summary(log):
+        if "solve" in kern:
+            print(f"  ptxas: {kern}: {regs} registers, {spill} bytes spilled, "
+                  f"{frame} bytes stack frame", flush=True)
+    lib = ctypes.CDLL(str(so))
+    I_, P_, L_ = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    lib.px_knot_solve.argtypes = [I_] + [P_] * 10 + [I_] * 6 + [P_, P_]
+    lib.px_knot_solve_ws.argtypes = [I_] * 6
+    lib.px_knot_solve_ws.restype = L_
+    if not baseline:
+        lib.px_knot_solve_config.argtypes = [P_]
+        lib.px_knot_solve_config.restype = None
+    for B, N, dz, m, dtype, P in K9_SOLVE_SHAPES:
+        ms, rel, launches, cfg = run_knot_solve(lib, B, N, dz, m, dtype, P, baseline, reps)
+        print(f"  K9 solve B={B},N={N},dz={dz},m={m} {dtype} P={P}: {ms:.4f} ms per call, "
+              f"rel err vs plain {rel:.2e}", flush=True)
+        for q, (lname, span, ph, sub) in enumerate(launches):
+            if baseline:      # one thread block of 256 a partition (c1, c3) or problem (c2)
+                blocks = B if lname == "c2" else B * P
+                where = f"{blocks} thread blocks of 256, one a {'problem' if lname == 'c2' else 'partition'}"
+            else:
+                blocks, cluster, smem = cfg[q]
+                where = f"{blocks} thread blocks in clusters of {cluster}, {smem // 1024} KB each"
+            total = sum(c for _, c in ph)
+            print(f"    {lname}: block 0 from start to end {span:.1f} us ({where}); "
+                  f"its cycles {total} ({total / cyc_per_us:.1f} us): "
+                  + ", ".join(f"{n} {c}" for n, c in ph), flush=True)
+            if sub:
+                print("      first chunk (load/mv1/mv2/mv3/rest): " + "; ".join(
+                    f"{n} " + "/".join(str(x) for x in cyc) for n, cyc in sub), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path,
@@ -553,6 +685,9 @@ def main():
     ap.add_argument("--only-baseline", action="store_true",
                     help="time the baseline alone")
 
+    ap.add_argument("--knot-solve", action="store_true",
+                    help="time K9's solve by launch and phase (--baseline: commit "
+                         "9e52288's sources through pr9_knot_solve_stamps.patch)")
     ap.add_argument("--solve", action="store_true",
                     help="time K3's condensed solve by phase (--baseline: commit "
                          "b34c8df's sources through pr7_solve_stamps.patch)")
@@ -567,6 +702,31 @@ def main():
     clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True).stdout.strip()
     cyc_per_us = float(clk.splitlines()[0]) if clk else 1980.0
+    if args.knot_solve:
+        todo = []           # (name, sources, build directory, baseline)
+        if args.baseline:
+            bdir = out_dir / "knot_solve_baseline_src"
+            bdir.mkdir(parents=True, exist_ok=True)
+            patches = split_patch(KNOT_SOLVE_PATCH.read_text())
+            for f in args.baseline.iterdir():
+                if f.suffix in (".cu", ".cuh"):
+                    text = f.read_text()
+                    if f.name in patches:
+                        text = apply_patch(text, patches[f.name])
+                    (bdir / f.name).write_text(text)
+            todo.append(("baseline K9 solve (9e52288 with pr9_knot_solve_stamps.patch)", bdir,
+                         out_dir / "knot_solve_baseline", True))
+        if not args.only_baseline:
+            todo.append(("piccolax_torch/csrc K9 solve", CSRC, out_dir / "knot_solve_current",
+                         False))
+        from concurrent.futures import ThreadPoolExecutor
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(todo)) as pool:     # the builds side by side
+            built = list(pool.map(lambda t: build_all(t[1], t[2], ("knot",)), todo))
+        for (name, _, _, base), libs in zip(todo, built):
+            report_knot_solve(name, libs, time.perf_counter() - t0, base, cyc_per_us)
+        print(card, flush=True)
+        return 0
     if args.solve:
         if args.baseline:
             bdir = out_dir / "solve_baseline_src"

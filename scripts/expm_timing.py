@@ -14,8 +14,9 @@ multiply-adds). Then at the paths' shapes it times (CUDA events, the least
 of two runs of `--reps` launches):
 
 - the value launches: each path's residual and line-search sweep (4 x 4 and
-  8 x 8 generators, the path's order and squaring count), beside a device
-  copy of the same bytes (`clone`), what moving them costs at that size;
+  8 x 8 generators, the path's order and squaring count), beside the plain
+  version, torch.linalg.matrix_exp, and a device copy of the same bytes
+  (`clone`), what moving them costs at that size;
 - the derivative launches: r(A) and its first and second derivatives along
   d directions, A [B, N-1, w, w], as the dense path computes them (the
   3w x 3w augmentation M of `derivative_augmentations`, the value kernel on
@@ -305,6 +306,7 @@ def main():
         + [Build("current", CSRC)]
     rng = np.random.default_rng(9)
 
+    from piccolax_torch.ops.expm import expm_fixed_plain
     print("== value launches (residual and line-search sweep)", flush=True)
     for path, B, K, w, d, dtype, order, s, cand in PATHS:
         es = 8 if dtype == "float64" else 4
@@ -314,10 +316,13 @@ def main():
             errs = {b.label: rel(b.expm(A, order, s), ref) for b in builds}
             ms = in_turns(builds, lambda b: b.expm(A, order, s), args.reps)
             copy = time_ms(lambda: A.clone(), args.reps)
+            plain = time_ms(lambda: expm_fixed_plain(A, order, s), args.reps)
+            lib = time_ms(lambda: torch.linalg.matrix_exp(A), args.reps)
             M = A.numel() // (w * w)
             bound = 1e3 * 2 * M * w * w * es / H100_BYTES_PER_S
             print(f"{path} {what} {list(A.shape)} {dtype} order {order} s={s}: "
                   + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                  + f"; plain version {plain:.4f} ms, matrix_exp {lib:.4f} ms"
                   + f"; bytes bound {bound:.4f} ms, a copy of A (clone) {copy:.4f} ms; "
                   f"rel diff vs {builds[0].label} "
                   + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()), flush=True)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device time an IPM iteration of four solve paths, profiled over
+"""Device time an IPM iteration of five solve paths, profiled over
 20-iteration windows: config 3 (B = 16, float32, "cr"), the CNOT (B = 1,
-float64, "cr"), the batched quickstart (B = 256, float64, Taylor, "cr")
-and the batched Pade/qd quickstart (B = 256, float64, Pade 7, "qd").
+float64, "cr" and "knot" with P = 8 partitions), the batched quickstart
+(B = 256, float64, Taylor, "cr") and the batched Pade/qd quickstart
+(B = 256, float64, Pade 7, "qd").
 
 Run from the root of a checkout on a machine with the card; it uses that
 checkout's chip_smoke.py and piccolax_torch, so it also profiles an
@@ -55,6 +56,8 @@ def main():
                     torch.as_tensor(Zb, device="cuda"), cs._c3_options()))
     windows.append(("CNOT (B=1, f64, cr)", nlp, params, Z0,
                     pt.IPMOptions(max_iter=20, kkt_backend="cr")))
+    windows.append(("CNOT (B=1, f64, knot, P=8)", nlp, params, Z0,
+                    pt.IPMOptions(max_iter=20, kkt_backend="knot")))
     for order, backend, label in (("taylor", "cr", "batched quickstart (B=256, f64, cr)"),
                                   (7, "qd", "batched Pade/qd quickstart (B=256, f64, qd)")):
         _, _, qcp = cs._quickstart_problem(pade_order=order)
@@ -66,8 +69,10 @@ def main():
                         cs._qs_options(backend)))
 
     for label, nlp_, params_, Z_, opts in windows:
+        mesh = max(cs.KNOT_PARTS) if opts.kkt_backend == "knot" else None
+
         def run(n):
-            return pt.solve_nlp(nlp_, params_, Z_, device="cuda",
+            return pt.solve_nlp(nlp_, params_, Z_, device="cuda", mesh=mesh,
                                 options=pt.IPMOptions(**{**opts.__dict__, "max_iter": n}))
         run(2)
         _kernels.reset_launch_counts()

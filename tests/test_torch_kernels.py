@@ -145,7 +145,7 @@ def test_expm_fixed_derivatives_refuses_mismatched_shapes(shapes):
 # -- K1: Cholesky-inverse factor ---------------------------------------------
 
 
-@pytest.mark.parametrize("m", [12, 14])
+@pytest.mark.parametrize("m", [1, 12, 14, 15, 16, 17, 33, 44, 64])
 def test_chol_inv_factor_matches_jax(m):
     rng = np.random.default_rng(m)
     A = _spd(rng, (3, 4), m)

@@ -86,12 +86,14 @@ def test_batched_tridiag_solve_matches_jax_reference():
         assert _rel(got[b], ref) < 1e-9
 
 
-@pytest.mark.parametrize("N,m,dz,P", [(12, 3, 5, 4), (16, 4, 6, 2)])
+@pytest.mark.parametrize("N,m,dz,P", [(12, 3, 5, 4), (16, 4, 6, 2), (24, 2, 3, 8),
+                                      (32, 2, 3, 8)])
 def test_knot_condensed_factor_and_solve_match_jax(N, m, dz, P):
     """The factor's interface system and the solve of two right-hand sides
     against piccolax's knot_condensed_factor / _solve on a P-device mesh,
     1e-9 relative; the solve also against piccolax's unpartitioned
-    condensed solve ("cr"), 1e-9."""
+    condensed solve ("cr"), 1e-9. N = 3P and 4P are the partition edges
+    (one interior knot; two, padded to one CR level)."""
     from piccolax.solver import kkt as jkkt
     Pm, C, R, Cn, rhs = _kkt_blocks(N, m, dz, seed=N + P)
 
