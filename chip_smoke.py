@@ -579,63 +579,109 @@ def _taylor_flops(n, order, sq):
     return n_mm * (2 * n ** 3 - n * n) + (17 if order == 8 else 24) * n * n
 
 
-def _pade13_flops(n, s):
+def _pade13_flops(n, s, newton_schulz=False):
     """Real operations of K5 on one complex n x n matrix with s squarings
-    (an int tensor), counted from its body: 23 + s complex products of
-    8n^3 - 2n^2 (X^2, X^4, X^6; two for U and one for V; 16 in the 8
-    Newton-Schulz steps; Y (V + U); s squarings), and elementwise 5n^2 - 1
-    for the norm (a modulus as 4), 3 for s, 2n^2 to scale, 22n^2 + 2n
-    each for U's and V's sums, 4n^2 for V -/+ U and 16n^2 for the 8 (2I - R).
-    The 16 Newton-Schulz products are the algorithm's, not the function's:
-    a pivoted solve would take about one product's work."""
+    (an int tensor), counted from its body: 6 complex products of 8n^3 -
+    2n^2 (X^2, X^4, X^6; two for U and one for V), s squarings (a product
+    each; at n = 2 five complex multiplies and three adds, 36) and the
+    solve (V - U) F = V + U: at n = 2 the closed form, 100 (the determinant
+    and its reciprocal 20, the scaled adjugate 24, its product with V + U),
+    above it LU with n right-hand sides, n(n - 1)(2n - 1)/6 + n^2 (n - 1)
+    complex multiply-adds of 8, and n(n - 1)/2 multipliers, n^2 scalings
+    and n reciprocals of 6; elementwise 5n^2 - 1
+    for the norm (a modulus as 4), 3 for s, 2n^2 to scale, 22n^2 + 2n each
+    for U's and V's sums and 8n^2 for (V -/+ U) / b0. newton_schulz: the
+    count of the earlier kernel's body, 23 + s products (16 of them the 8
+    Newton-Schulz steps of the plain version, one Y (V + U)) and 12n^2
+    for the steps' sums, the yardstick that PERF.md's older K5 bounds
+    used."""
     per_mm = 8 * n ** 3 - 2 * n * n
-    return int(((23 + s.double()) * per_mm).sum().item()) \
-        + s.numel() * (71 * n * n + 4 * n + 2)
+    s = s.double()
+    if newton_schulz:
+        ops = (23 + s) * per_mm + 12 * n * n
+    elif n == 2:
+        ops = 6 * per_mm + 36 * s + 100
+    else:
+        lu = n * (n - 1) * (2 * n - 1) // 6 + n * n * (n - 1)
+        ops = (6 + s) * per_mm + 8 * lu + 6 * (n * (n - 1) // 2 + n * n + n)
+    return int(ops.sum().item()) + s.numel() * (59 * n * n + 4 * n + 2)
+
+
+def _qs256_rollout_inputs(cdt):
+    """-iH(u) h of the batched quickstart's rollout check: 256 pulses of
+    quickstart_batched's perturbation on QS_N knots over QS_T, 10 ZOH
+    substeps an interval, [256, 990, 2, 2] as quantum/dynamics.py hands
+    them to expm (every s 0)."""
+    import torch
+    import piccolax_torch as pt
+    sysq = pt.QuantumSystem(0.5 * pt.PAULIS["Z"], [pt.PAULIS["X"], pt.PAULIS["Y"]], 1.0)
+    rng = np.random.default_rng(0)
+    u = 0.1 * rng.standard_normal((QS_N, 2))
+    u = u[None] + 0.02 * rng.standard_normal((QS_B, QS_N, 2))
+    u = torch.as_tensor(np.repeat(u[:, :-1], 10, axis=1), device="cuda")
+    if cdt is np.complex64:
+        u = u.float()
+    h = QS_T / (QS_N - 1) / 10
+    return (-1j * h * sysq.H(u)).contiguous()
 
 
 def check_expm_pade13(record, reps=20):
     """Phase 3, K5: the rollout's Pade-13 expm against its plain version
-    on the batched quickstart rollout [256 * 990, 2, 2] and on 4 x 4
-    rollouts [16 * 199, 4, 4], complex128 and complex64, with every
-    squaring count and norms within two ulps of each count's edge. Each
-    matrix holds to tol relative for s <= 6 and tol * 2^(s-6) above (s
-    squarings multiply a rounding difference by up to 2^s); the
-    per-matrix s must agree."""
+    on [256 * 990, 2, 2] (the batched quickstart's rollout size) and on
+    [16 * 199, n, n] for n = 1, 3, 4, 5, 8, 9 and 16 (every segment class
+    of the kernel at both ends), complex128 and complex64, with
+    every squaring count and norms within two ulps of each count's edge,
+    and on the batched quickstart rollout's own inputs [256, 990, 2, 2]
+    (s = 0). Each matrix holds to tol relative for s <= 6 and tol *
+    2^(s-6) above (s squarings multiply a rounding difference by up to
+    2^s; the kernel solves for F directly where the plain version runs
+    piccolax's Newton-Schulz steps); the per-matrix s must agree. The
+    bound counts the kernel's body (_pade13_flops), the earlier 23 + s
+    products' bound printed beside it in brackets."""
     import torch
     from piccolax_torch.ops import expm as ex
 
     rng = np.random.default_rng(5)
     main = None
     sub = {}
-    for n, M in ((2, QS_B * (QS_N - 1) * 10), (4, 16 * 199)):
+    cases = [(2, QS_B * (QS_N - 1) * 10), *((n, 16 * 199) for n in (1, 3, 4, 5, 8, 9, 16)),
+             ("qs256", QS_B * (QS_N - 1) * 10)]
+    for case, M in cases:
         for cdt, tol in ((np.complex128, 1e-12), (np.complex64, 1e-4)):
-            A = torch.as_tensor(ex.anti_hermitian_by_squarings(M, n, rng, cdt),
-                                device="cuda")
+            n = 2 if case == "qs256" else case
+            if case == "qs256":
+                A = _qs256_rollout_inputs(cdt)
+                key = f"qs256 rollout [{QS_B},{(QS_N - 1) * 10},2,2] {cdt.__name__}"
+            else:
+                A = torch.as_tensor(ex.anti_hermitian_by_squarings(M, n, rng, cdt),
+                                    device="cuda")
+                key = f"[{M},{n},{n}] {cdt.__name__}"
             got, s = ex.expm(A, return_squarings=True)
             ref = ex.expm_plain(A)
             s_ref = ex.pade13_squarings(A)
-            _check(torch.equal(s, s_ref), f"expm {n}x{n} {cdt.__name__}: "
+            _check(torch.equal(s, s_ref), f"expm {key}: "
                    f"{int((s != s_ref).sum())} squaring counts differ")
-            _check(set(s.unique().tolist()) == set(range(17)),
-                   "expm inputs miss a squaring count")
+            every = set(s.unique().tolist()) == set(range(17))
+            _check(every or key.startswith("qs256"), f"expm {key}: inputs miss a squaring count")
             d = (got - ref).abs().amax(dim=(-2, -1))
             rel = d / ref.abs().amax(dim=(-2, -1))
             lim = tol * torch.pow(2.0, torch.clamp(s - 6, min=0).double())
-            _check(bool((rel <= lim).all()), f"expm {n}x{n} {cdt.__name__} "
+            _check(bool((rel <= lim).all()), f"expm {key} "
                    f"rel err {rel.max().item():.3e} above tol * 2^(s-6)")
             real = "float64" if cdt is np.complex128 else "float32"
             es = 16 if cdt is np.complex128 else 8
-            flops = _pade13_flops(n, s)
             ms = _time_ms(lambda: ex.expm(A), reps)
-            plain_ms = _time_ms(lambda: ex.expm_plain(A), reps)
-            lib_ms = _time_ms(lambda: torch.linalg.matrix_exp(A), reps)
-            b_ms, b_by = _bound(flops, 2 * M * n * n * es, real)
-            key = f"[{M},{n},{n}] {cdt.__name__}"
+            plain_ms = _time_ms(lambda: ex.expm_plain(A), min(reps, 5))
+            lib_ms = _time_ms(lambda: torch.linalg.matrix_exp(A), min(reps, 5))
+            b_ms, b_by = _bound(_pade13_flops(n, s), 2 * M * n * n * es, real)
+            o_ms, o_by = _bound(_pade13_flops(n, s, newton_schulz=True), 2 * M * n * n * es,
+                                real)
             print(f"expm_pade13 {key}: max_err={d.max().item():.3e} "
                   f"(max rel {rel.max().item():.3e}; tol {tol:.0e} x 2^(s-6) "
                   f"above s=6), kernel_ms={ms:.4f}, plain_ms={plain_ms:.4f}, "
                   f"library_ms={lib_ms:.4f} (matrix_exp), bound_ms={b_ms:.4f} "
-                  f"({b_by}), s 0..16 equal", flush=True)
+                  f"({b_by}) [{o_ms:.4f} ({o_by}) on 23 + s products], "
+                  f"{'s 0..16' if every else 's 0'} equal", flush=True)
             row = (d.max().item(), ms, plain_ms, (b_ms, b_by), lib_ms)
             if main is None:
                 main = (key, row)
@@ -1089,11 +1135,12 @@ def check_knot_solve_clusters(reps=5):
     KNOT_SOLVE_P, N = 3P, 4P and 40, at the CNOT's blocks (dz = 44, m = 40)
     in float64 and float32, held as _cr_accuracy holds it (float64 to 1e-9
     of the plain version, factor, solve and solve on the kernel's factors;
-    float32: the solve on the kernel's factors against the plain solve on
-    them, both against float64 on three seeds, 2x rule: the pair that holds
-    the solve kernel alone, the factor's own pairs being check_knot's and
-    check_cr_widths'), the solution also against K3's plain condensed
-    solve ("cr"; 1e-9 in float64, 1e-3 in float32) and, at N = 4P, with one
+    float32, on three seeds, by the 2x rule against float64: the factor,
+    held beside the plain factor, and the solve on the kernel's factors
+    beside the plain solve on them, the pair that holds the solve kernel
+    alone; the end-to-end solve pair is printed), the solution also
+    against K3's plain condensed solve ("cr"; 1e-9 in float64, 1e-3 in
+    float32) and, at N = 4P, with one
     indefinite dual block (_cr_nan: NaN in its problem alone); each solve
     call must count one knot_solve launch. Prints the cluster sizes the
     library plans ((c1, c3) a partition, (c2) a problem); every size 1-16
@@ -1124,7 +1171,7 @@ def check_knot_solve_clusters(reps=5):
                         (_, C, R, Cn, rhs), (Xi, fk), _, _, err_s, _ = _cr_accuracy(
                             B, N, dz, m, dtype, r, label + ("" if seed is None else
                                                             f" seed {seed}"), P,
-                            hold=("solve on its factors",))
+                            hold=("factor", "solve on its factors"))
                     before = _kernels.LAUNCHES["knot_solve"]
                     xk = sk.knot_condensed_solve(fk, rhs, P, dz)
                     _check(_kernels.LAUNCHES["knot_solve"] == before + 1,
@@ -1176,20 +1223,24 @@ def check_caps():
 
 def check_tri_lower_inv(record, reps=20):
     """Phase 3, K8: the lower-triangular inverse (on no solve path) against
-    its plain version at [25600, m, m], m = 32, 16, 44 and 64, float64 and
-    float32, on Cholesky factors of SPD matrices; relative to
-    max |L^{-1}|, since substitution and doubling round differently. The
-    [25600, 32, 32] float64 row is the kernel's record. Operations from
-    the body: column j takes 2(i - j) + 1 per row i >= j, m(m+1)(2m+1)/6
-    in all; bytes: the sectors of L's lower triangle read, the whole
-    m x m inverse written."""
+    its plain version at [25600, m, m], m = 32, 16, 44, 64, 1, 2, 5 and 8
+    (every width class), float64 and float32, on Cholesky factors of SPD
+    matrices; relative to max |L^{-1}|, since substitution and doubling
+    round differently. With zeros on the diagonal of three of the first 64
+    blocks (its first, a middle and its last entry) the kernel must give
+    inf/NaN in the same entries as the plain version (the doubling's whole
+    block for m >= 3, some entries of it at m <= 2, where the doubling
+    takes no product) and the other blocks as before. The [25600, 32, 32] float64 row is the
+    kernel's record. Operations from the body: column j takes 2(i - j) + 1
+    per row i >= j, m(m+1)(2m+1)/6 in all; bytes: the sectors of L's lower
+    triangle read, the whole m x m inverse written."""
     import torch
     from piccolax_torch.solver import kkt
 
     rng = np.random.default_rng(31)
     tol = {"float64": 1e-12, "float32": 1e-5}
     main, sub = None, {}
-    for m in (32, 16, 44, 64):
+    for m in (32, 16, 44, 64, 1, 2, 5, 8):
         X = rng.standard_normal((25600, m, m))
         L0 = np.linalg.cholesky(X @ np.swapaxes(X, -1, -2) / m + np.eye(m))
         for real in ("float64", "float32"):
@@ -1198,6 +1249,17 @@ def check_tri_lower_inv(record, reps=20):
             err, rel = _rel_err(kkt.tri_lower_inv(L), kkt.tri_lower_inv_plain(L))
             _check(rel < tol[real], f"tri_lower_inv [25600,{m},{m}] {real}: "
                    f"rel err {rel:.3e}")
+            Lz = L[:64].clone()
+            for blk, i in ((3, 0), (17, m // 2), (40, m - 1)):
+                Lz[blk, i, i] = 0
+            got, ref = kkt.tri_lower_inv(Lz), kkt.tri_lower_inv_plain(Lz)
+            finite = torch.isfinite(ref[[3, 17, 40]]).flatten(1)
+            _check(torch.equal(torch.isfinite(got), torch.isfinite(ref))
+                   and not bool((finite.any(1) if m >= 3 else finite.all(1)).any()),
+                   f"tri_lower_inv [64,{m},{m}] {real}: inf/NaN differ from the plain "
+                   "version's on a zero diagonal")
+            _check(_rel_err(got, ref)[1] < tol[real],
+                   f"tri_lower_inv [64,{m},{m}] {real}: healthy blocks beside zero diagonals")
             eye = torch.eye(m, dtype=L.dtype, device="cuda").expand_as(L)
             ms = _time_ms(lambda: kkt.tri_lower_inv(L), reps)
             plain_ms = _time_ms(lambda: kkt.tri_lower_inv_plain(L), reps)
@@ -1210,7 +1272,8 @@ def check_tri_lower_inv(record, reps=20):
                 main = (key, err, ms, plain_ms, (b_ms, b_by), lib_ms)
             else:
                 print(f"tri_lower_inv {key}: max_err={err:.3e} ({tol[real]:.0e} "
-                      f"relative), kernel_ms={ms:.4f}, plain_ms={plain_ms:.4f}, "
+                      f"relative; zero diagonals: inf/NaN as the plain version's), "
+                      f"kernel_ms={ms:.4f}, plain_ms={plain_ms:.4f}, "
                       f"library_ms={lib_ms:.4f} (solve_triangular), "
                       f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
                 sub[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -12,7 +12,8 @@
   structure of the augmentations that piccolax's jacfwd / hessian
   differentiate (K4's and K6's derivative form).
 - `expm` (K5), the rollout: scaling-and-squaring Pade-13 with a squaring
-  count per matrix and the denominator inverted by Newton-Schulz.
+  count per matrix (the plain version inverts the denominator by
+  Newton-Schulz as piccolax does; the kernel solves for it directly).
 
 On a CUDA tensor each wrapper launches its hand-written kernel (K4 and K6
 in both forms: `csrc/expm_fixed.cu`; K5: `csrc/expm_pade13.cu`); on a CPU
@@ -443,7 +444,9 @@ _NS_ITERS = 8
 _MAX_N_PADE = 16
 
 
-def _pade13(A):
+def _pade13_uv(A):
+    """Pade-13's odd part U and even part V of a scaled A: r13(A) =
+    (V - U)^-1 (V + U)."""
     b = _B13
     n = A.shape[-1]
     ident = torch.eye(n, dtype=A.dtype, device=A.device)
@@ -454,7 +457,12 @@ def _pade13(A):
              + b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * ident)
     V = (A6 @ (b[12] * A6 + b[10] * A4 + b[8] * A2)
          + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * ident)
-    return _ns_solve(V - U, V + U, b[0], _NS_ITERS)
+    return U, V
+
+
+def _pade13(A):
+    U, V = _pade13_uv(A)
+    return _ns_solve(V - U, V + U, _B13[0], _NS_ITERS)
 
 
 def pade13_squarings(A, max_squarings: int = 16):
@@ -529,12 +537,16 @@ def expm(A, max_squarings: int = 16, device=None, *,
 
     Replaces piccolax/ops/expm.py:74 expm (with _pade13 and _ns_solve). A
     tensor runs where it lies; anything else is moved to `device` (the
-    card unless the caller passes "cpu"). Bound on the H100: float64
-    arithmetic outside the tensor cores (23 + s complex n x n products per
-    matrix, 16 of them the Newton-Schulz inverse, against 2 n^2 values in
-    and out). The kernel keeps the
-    matrix in registers, one thread per matrix, at n = 2 (every rollout of
-    a qubit) and in shared memory, one warp per matrix, up to n = 16.
+    card unless the caller passes "cpu"). The kernel takes 6 + s complex
+    n x n products a matrix and solves (V - U) F = V + U directly (the
+    closed form at n = 2, Gauss-Jordan without pivoting at the other n:
+    V - U is diagonally dominant after the scaling) where the plain version
+    runs piccolax's 8 Newton-Schulz steps; the two agree to rounding. Bound
+    on the H100: bytes at n = 2 (every rollout of a qubit: one thread a
+    matrix in registers, read and written as 16-byte units), float64
+    arithmetic at n = 16 (a segment of lanes a matrix, each lane a register
+    tile of every product, the matrices in shared memory; see
+    csrc/expm_pade13.cu).
     """
     if not isinstance(A, torch.Tensor):
         A = torch.as_tensor(A).to(resolve_device(device))
@@ -550,9 +562,10 @@ def expm(A, max_squarings: int = 16, device=None, *,
         return (F, pade13_squarings(A, max_squarings)) if return_squarings else F
     if A.device.type != "cuda":
         raise RuntimeError(f"expm: unsupported device {A.device}")
-    if not A.is_contiguous():
-        raise ValueError("expm: contiguous tensor expected")
     n = A.shape[-1]
+    if not A.is_contiguous() or (n == 2 and A.data_ptr() % 16):
+        raise ValueError("expm: contiguous tensor expected (16-byte aligned at n = 2, "
+                         "whose kernel reads 16-byte units)")
     out = torch.empty_like(A)
     s = torch.empty(A.shape[:-2], dtype=torch.int32, device=A.device) \
         if return_squarings else None

@@ -86,8 +86,8 @@ def chol_inv_factor(A):
     Replaces piccolax/solver/kkt.py: chol_inv_factor. Bound on the H100:
     bytes (one read of A, one write of Xi). A block on an H-lane segment of
     a warp (H = 8 up to 16 wide, 16 up to 32, 32 past it), a lane owning
-    rows l and l + H in registers, the pivots broadcast by shuffles; see
-    csrc/chol_inv.cu.
+    rows l and l + H in registers, one shared-memory exchange a pivot (the
+    pivot row written once, read by every lane); see csrc/chol_inv.cu.
     """
     if not _cuda_or_cpu(A, "chol_inv_factor"):
         return chol_inv_factor_plain(A)
@@ -541,11 +541,14 @@ def tri_lower_inv(L):
     (m <= 64); a zero on the diagonal gives inf / NaN, as in piccolax.
 
     Replaces piccolax/solver/kkt.py:58 tri_lower_inv. Bound on the H100:
-    bytes (one read of L, one write of its inverse). One warp per block,
-    lane l substituting columns l and l + 32 (the second half of K1's
-    routine), up to four warps per thread block; see csrc/tri_inv.cu. The
-    substitution rounds otherwise than the doubling: they agree relative
-    to ||L^{-1}||.
+    bytes (one read of L's lower triangle, one write of the inverse). A
+    thread a column of the inverse, in registers, every thread of a block
+    running the same rows of the forward substitution on L's rows
+    broadcast from shared memory (several blocks a warp up to 16 wide, two
+    warps a block past 32); see csrc/tri_inv.cu. The substitution rounds
+    otherwise than the doubling: they agree relative to ||L^{-1}||. A zero
+    on the diagonal gives an all-NaN block at m >= 3, as the doubling does,
+    and at m <= 2 the doubling's one-step form, finite where it is.
     """
     if not _cuda_or_cpu(L, "tri_lower_inv"):
         return tri_lower_inv_plain(L)

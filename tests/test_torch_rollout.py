@@ -59,6 +59,31 @@ def test_expm_plain_matches_jax(n, dtype, tol):
     assert np.all(err <= tol * 2.0 ** np.maximum(s - 6, 0)), err.max()
 
 
+@pytest.mark.parametrize("dtype,tol", [(np.complex128, 1e-12),
+                                       (np.complex64, 1e-4)])
+@pytest.mark.parametrize("n", [2, 3, 4, 9, 16])
+def test_direct_pade13_solve_matches_jax(n, dtype, tol):
+    """K5's kernel solves (V - U) F = V + U directly where piccolax runs 8
+    Newton-Schulz steps: the same U and V (the port's _pade13_uv), F from
+    torch.linalg.solve and the per-matrix s of pade13_squarings (held to
+    piccolax's count by test_expm_plain_matches_jax) hold to piccolax's
+    expm within chip_smoke.py's bar for the kernel, tol relative for
+    s <= 6 and tol * 2^(s-6) above, on the inputs of
+    test_expm_plain_matches_jax (every s 0..16)."""
+    A = pexpm.anti_hermitian_by_squarings(139, n, np.random.default_rng(n), dtype)
+    ref = np.asarray(jexpm.expm(jnp.asarray(A)))
+    At = torch.as_tensor(A)
+    s = pexpm.pade13_squarings(At)
+    U, V = pexpm._pade13_uv(At * torch.pow(2.0, -s.double()).to(At.dtype)[..., None, None])
+    F = torch.linalg.solve(V - U, V + U)
+    for i in range(int(s.max())):
+        F = torch.where((i < s)[..., None, None], F @ F, F)
+    got, s = F.numpy(), s.numpy()
+    assert got.dtype == dtype and set(s.tolist()) == set(range(17))
+    err = np.abs(got - ref).max(axis=(-2, -1)) / np.abs(ref).max(axis=(-2, -1))
+    assert np.all(err <= tol * 2.0 ** np.maximum(s - 6, 0)), err.max()
+
+
 def _system():
     return (px.QuantumSystem(0.5 * px.PAULIS["Z"], [px.PAULIS["X"], px.PAULIS["Y"]], 1.0),
             pt.QuantumSystem(0.5 * pt.PAULIS["Z"], [pt.PAULIS["X"], pt.PAULIS["Y"]], 1.0))
