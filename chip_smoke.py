@@ -52,9 +52,25 @@ fatal on failure:
     same gate), then the CNOT at B = 1 in float64 on "qd": 40 iterations
     reported beside phase 11's "cr" run (the largest Z difference), and
     one solve to its end (max_iter 250, tol 1e-6), gated by DOP853
-    F > 0.999.
+    F > 0.999;
+13. config 4: the robustness ensemble (1024 SX problems, N = 50, T = 10,
+    each with its own detuned drift) through robustness_ensemble and
+    batch_solve in float32 with bench.py's options, gated by 1024/1024
+    converged and F > 0.999 on all under a per-sample float64 DOP853
+    re-integration with each sample's own drift;
+14. config 2: the qutrit X with leakage suppression (N = 100, T = 20,
+    embedded goal, Pedersen subspace fidelity, leakage cost) at B = 64 in
+    float32 with bench.py's options (hess_mode "abs"), gated by >= 62/64
+    converged, the float64 DOP853 subspace fidelity F > 0.99 on all and
+    mean_F >= 0.999.
 
-Phase 3 also checks K1-K3 at config 3's shapes ([16, 200, 44, 44], m = 40
+Phase 3 also checks K1-K4 at config 4's shapes ([1024, 50, 14, 14], m =
+12, float32) and K1-K3 at config 2's ([64, 100, 24, 24], m = 22, float32,
+K2 in mode "abs"), K4 at config 2's 6 x 6 residual sweep, the derivative
+form at both paths' (w, d) on their own systems (config 4: one drift a
+problem), K5 on the construction rollouts of the quickstart, config 4 and
+config 2 ([99, 2, 2], [49, 2, 2], [99, 3, 3]), K1-K3 at config 3's shapes
+([16, 200, 44, 44], m = 40
 in float32; B = 1 in float64), K4 and K6 (Pade order 7) at the CNOT's 8 x 8
 residual sweeps (both dtypes) and K9
 (the knot-partitioned factor and solve at the same shapes with P = 4 and
@@ -71,8 +87,9 @@ float32 version's error, three seeds), and at a sweep of widths reaching
 each padding class (n = 1 to 64, both types and modes) with a NaN block
 whose mask must equal the plain version's and a block one ulp short of
 symmetric, which must come out all NaN (the kernels take exactly
-symmetric blocks); K3's solve at B = 1, 2, 12, 16, 24, 64 and 256 (every
-cluster size it launches with) and N = 13 and 2, one launch a call; K9's
+symmetric blocks); K3's solve at B = 1, 2, 12, 16, 24, 64, 256 and 1024
+(every cluster size it launches with) and N = 13 and 2, and at the shapes
+of configs 4 and 2, one launch a call; K9's
 solve at B = 1, 2 and 16, P = 2, 4 and 8, N = 3P, 4P and 40 (every cluster
 size its planner chooses, printed from the library), held as K3's and
 against "cr", with the one-problem NaN isolation; K1 at every width 1-64 in
@@ -83,7 +100,7 @@ paths print K4's and K6's launches by block width and form (residual
 sweeps, derivative launches), and fail if the value form ran on a 12- or
 24-wide augmentation.
 
-Each of 4-12 resets every launch counter just before it and reads them
+Each of 4-14 resets every launch counter just before it and reads them
 just after, and fails if a kernel of its path was not launched or a
 kernel of another path was (no fallback). Prints
 the {"kernels": [...]} record, then as the last line {"ok": true,
@@ -115,6 +132,10 @@ QS_N, QS_T, QS_B = 100, 10.0, 256
 # config 3: bench.py's config-3 options (bench.py:239-244)
 C3_N, C3_T, C3_B = 200, 50.0, 16
 KNOT_PARTS = (4, 8)
+# config 2: bench.py's config-2 options (bench.py:191-194); config 4:
+# bench.py:287-289's
+C2_N, C2_T, C2_B = 100, 20.0, 64
+C4_B, C4_N, C4_T = 1024, 50, 10.0
 
 
 def _check(ok, message):
@@ -194,12 +215,14 @@ def _card():
 
 
 def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
-                  variant=None):
+                  variant=None, k2_mode="pos"):
     """Phase 3, K1-K4: every kernel against its plain version at the
     shapes of a path: B problems of N knots, dz columns, m rows; K4 on the
     line-search residual sweep (unless k4 is False; its derivative form:
     check_expm_derivatives). clamp: K2's (sweeps, floor), the IPM's for the
-    dtype unless given; variant: the record's key for the shapes."""
+    dtype unless given; k2_mode: the mode of K2 the path runs (timed, and
+    held against float64 in float32); variant: the record's key for the
+    shapes."""
     import torch
     from piccolax_torch.ops import expm as ex
     from piccolax_torch.quantum.systems import QuantumSystem
@@ -234,21 +257,24 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
     if not f64:
         for seed in (None, *QD_F32_SEEDS):
             Ws = W if seed is None else _sym(np.random.default_rng(seed), (B, N, dz), t)
-            _k2_vs_float64(Ws, floor_rel, iters, "pos",
+            _k2_vs_float64(Ws, floor_rel, iters, k2_mode,
                            f"[{B},{N},{dz},{dz}] seed {seed or 1234}")
     M = B * N
     # S, P = 0.5 S S, P S and the last S Y are symmetric (polynomials in W):
     # each product needs dz^2 (dz + 1) / 2 multiply-adds, two a sweep
     flops = M * (iters * 2 * dz * dz * (dz + 1) + dz * dz * (dz + 1) + 6 * dz * dz)
-    # the row describes mode "pos", the one the main paths run
+    # the row describes the mode the path runs
+    other = "abs" if k2_mode == "pos" else "pos"
     record("psd_clamp", "piccolax_torch/csrc/psd_clamp.cu",
-           "piccolax/solver/kkt.py:150", errs["pos"],
-           _time_ms(lambda: kkt.psd_clamp(W, floor_rel, iters, "pos"), reps),
-           _time_ms(lambda: kkt.psd_clamp_plain(W, floor_rel, iters, "pos"), reps),
+           "piccolax/solver/kkt.py:150", errs[k2_mode],
+           _time_ms(lambda: kkt.psd_clamp(W, floor_rel, iters, k2_mode), reps),
+           _time_ms(lambda: kkt.psd_clamp_plain(W, floor_rel, iters, k2_mode), reps),
            bound(flops, 2 * M * dz * dz * es),
-           _time_ms(lambda: _eigh_clamp(W, floor_rel), reps),
-           f"{tol['K2']:.0e} relative, mode pos; mode abs max_err={errs['abs']:.3e}",
-           shape=f"[{B},{N},{dz},{dz}] {dtype}, {iters} sweeps", variant=variant)
+           _time_ms(lambda: _eigh_clamp(W, floor_rel, k2_mode), reps),
+           f"{tol['K2']:.0e} relative, mode {k2_mode}; mode {other} "
+           f"max_err={errs[other]:.3e}",
+           shape=f"[{B},{N},{dz},{dz}] {dtype}, {iters} sweeps, mode {k2_mode}",
+           variant=variant)
 
     # -- K1: chol_inv_factor on SPD knot blocks, 1 in 8 made indefinite
     P = kkt.psd_clamp_plain(W, floor_rel, iters) + \
@@ -333,27 +359,38 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
            bound(Mx * _taylor_flops(4, order, sq), 2 * Mx * 16 * es),
            _time_ms(lambda: torch.linalg.matrix_exp(Aexp), reps),
            f"{tol['K4']:.0e} relative",
-           shape=f"[{B * cand_ls},{N - 1},4,4] {dtype}, order {order}, s={sq}")
+           shape=f"[{B * cand_ls},{N - 1},4,4] {dtype}, order {order}, s={sq}",
+           variant=variant)
 
 
-def check_expm_cnot(B, cand_ls, dtype, record, reps=5, pade_order=None):
-    """Phase 3, K4 (or K6 with pade_order) at the CNOT's line-search
-    residual sweep [B * cand_ls, N-1, 8, 8] (cand_ls = directions x
-    ls_iters), at its integrator's order and squarings, against the plain
-    version at the kernel's tolerance (K4: 1e-9 relative in float64, 1e-5
-    in float32; K6: 1e-12 and 1e-5). (The derivative launches:
+def _sweep_problem(config, **kw):
+    """(problem, N, T) of a path whose residual sweep phase 3 checks: the
+    CNOT of config 3 or the qutrit X of config 2, on the card."""
+    import piccolax_torch as pt
+    if config == "config3":
+        return pt.cnot_problem(N=C3_N, T=C3_T, device="cuda", **kw), C3_N, C3_T
+    return pt.qutrit_x_problem(N=C2_N, T=C2_T, device="cuda", **kw), C2_N, C2_T
+
+
+def check_expm_sweep(config, B, cand_ls, dtype, record, reps=5, pade_order=None):
+    """Phase 3, K4 (or K6 with pade_order) at a path's line-search
+    residual sweep [B * cand_ls, N-1, w, w] (cand_ls = directions x
+    ls_iters; the CNOT's 8 x 8 for config 3, the qutrit's 6 x 6 for config
+    2), at its integrator's order and squarings, against the plain version
+    at the kernel's tolerance (K4: 1e-9 relative in float64, 1e-5 in
+    float32; K6: 1e-12 and 1e-5). (The derivative launches:
     check_expm_derivatives.)"""
     import torch
-    import piccolax_torch as pt
     from piccolax_torch.ops import expm as ex
 
     dev = torch.device("cuda")
     dt_ = getattr(torch, dtype)
     f64 = dtype == "float64"
     es = 8 if f64 else 4
-    rng = np.random.default_rng((61 if f64 else 62) + (0 if pade_order is None else 2))
+    rng = np.random.default_rng((61 if f64 else 62) + (0 if pade_order is None else 2)
+                                + (0 if config == "config3" else 4))
     kw = {} if pade_order is None else {"pade_order": pade_order}
-    prob = pt.cnot_problem(N=C3_N, T=C3_T, device="cuda", **kw)
+    prob, N, T = _sweep_problem(config, **kw)
     intg = prob.integrators[0]
     sysv = prob.qtraj.system.solver_view().to(dev, dt_)
     if pade_order is None:
@@ -365,14 +402,16 @@ def check_expm_cnot(B, cand_ls, dtype, record, reps=5, pade_order=None):
         fn, plain = ex.expm_pade_fixed, ex.expm_pade_fixed_plain
         order, tol, flops = pade_order, (1e-12 if f64 else 1e-5), _pade_fixed_flops
     sq = intg.squarings
-    dt = C3_T / (C3_N - 1)
+    dt = T / (N - 1)
     bound_u = prob.qtraj.system.drive_bounds[0][1]
-    u = torch.as_tensor(rng.uniform(-bound_u, bound_u, (B * cand_ls, C3_N - 1, 4)),
+    u = torch.as_tensor(rng.uniform(-bound_u, bound_u,
+                                    (B * cand_ls, N - 1, sysv.n_drives)),
                         dtype=dt_, device=dev)
     X = (dt * sysv.G(u)).contiguous()
     n = X.shape[-1]
+    what = "CNOT" if config == "config3" else "qutrit"
     err, rel = _rel_err(fn(X, order, sq), plain(X, order, sq))
-    _check(rel < tol, f"{name} CNOT residual sweep {tuple(X.shape)} ({dtype}) "
+    _check(rel < tol, f"{name} {what} residual sweep {tuple(X.shape)} ({dtype}) "
            f"rel err {rel:.3e}")
     Mx = X.numel() // (n * n)
     record(name, "piccolax_torch/csrc/expm_fixed.cu", f"piccolax/ops/expm.py:{line}", err,
@@ -381,8 +420,8 @@ def check_expm_cnot(B, cand_ls, dtype, record, reps=5, pade_order=None):
            _bound(Mx * flops(n, order, sq), 2 * Mx * n * n * es, dtype),
            _time_ms(lambda: torch.linalg.matrix_exp(X), reps),
            f"{tol:.0e} relative",
-           shape=f"CNOT residual sweep {list(X.shape)} {dtype}, order {order}, s={sq}",
-           variant=f"config3_{dtype}_{n}x{n}")
+           shape=f"{what} residual sweep {list(X.shape)} {dtype}, order {order}, s={sq}",
+           variant=f"{config}_{dtype}_{n}x{n}")
 
 
 def _path_directions(sysv, u, dt, dt_free):
@@ -457,7 +496,9 @@ DERIV_PATHS = [("config1", 256, 50, "float32", "taylor"),
                ("quickstart_pade7", 1, QS_N, "float64", 7),
                ("quickstart_pade7_b256", QS_B, QS_N, "float64", 7),
                ("config3", C3_B, C3_N, "float32", "taylor"),
-               ("cnot", 1, C3_N, "float64", "taylor")]
+               ("cnot", 1, C3_N, "float64", "taylor"),
+               ("config4", C4_B, C4_N, "float32", "taylor"),
+               ("config2", C2_B, C2_N, "float32", "taylor")]
 # directions' pairs: (w, d) up to the width cap, single and several tiles a
 # knot (4 x 12, 8 x 8 and 16 x 5 split their pairs over thread blocks)
 DERIV_SWEEP = [(1, 1), (2, 3), (3, 2), (5, 4), (6, 3), (7, 2), (9, 2), (10, 5), (12, 3),
@@ -465,16 +506,28 @@ DERIV_SWEEP = [(1, 1), (2, 3), (3, 2), (5, 4), (6, 3), (7, 2), (9, 2), (10, 5), 
 
 
 def _path_problem(label, N, order):
-    """The problem of a derivative path: its system and its integrator."""
+    """The problem of a derivative path: its system, its integrator, its
+    timestep and its solver view (config 4: the ensemble's, one drift a
+    problem)."""
     import piccolax_torch as pt
     if label.startswith("config1"):
         prob = pt.sx_gate_problem(N=N, T=10.0, device="cuda")
-        return prob.qtraj.system, prob.integrators[0], 10.0 / (N - 1)
-    if label.startswith("quickstart"):
+        dt = 10.0 / (N - 1)
+    elif label.startswith("config4"):
+        prob = pt.sx_gate_problem(N=N, T=C4_T, device="cuda")
+        _, params, _, _ = pt.robustness_ensemble(n_samples=C4_B, N=N, T=C4_T,
+                                                 device="cuda")
+        return prob.qtraj.system, prob.integrators[0], C4_T / (N - 1), params["system"]
+    elif label.startswith("config2"):
+        prob = pt.qutrit_x_problem(N=N, T=C2_T, device="cuda")
+        dt = C2_T / (N - 1)
+    elif label.startswith("quickstart"):
         sysq, _, qcp = _quickstart_problem(pade_order=order)
-        return sysq, qcp.integrators[0], 0.1
-    prob = pt.cnot_problem(N=N, T=C3_T, device="cuda")
-    return prob.qtraj.system, prob.integrators[0], C3_T / (N - 1)
+        return sysq, qcp.integrators[0], 0.1, sysq.solver_view()
+    else:
+        prob = pt.cnot_problem(N=N, T=C3_T, device="cuda")
+        dt = C3_T / (N - 1)
+    return prob.qtraj.system, prob.integrators[0], dt, prob.qtraj.system.solver_view()
 
 
 def check_expm_derivatives(record, reps=5):
@@ -497,9 +550,9 @@ def check_expm_derivatives(record, reps=5):
         dt_ = getattr(torch, dtype)
         f64 = dtype == "float64"
         es = 8 if f64 else 4
-        system, intg, dt = _path_problem(label, N, order)
+        system, intg, dt, sysv = _path_problem(label, N, order)
         sq = intg.squarings
-        sysv = system.solver_view().to(dev, dt_)
+        sysv = sysv.to(dev, dt_)
         bounds = np.asarray(system.drive_bounds, dtype=float)
         u = torch.as_tensor(rng.uniform(bounds[:, 0], bounds[:, 1],
                                         (B, N - 1, len(bounds))), dtype=dt_, device=dev)
@@ -625,6 +678,32 @@ def _qs256_rollout_inputs(cdt):
     return (-1j * h * sysq.H(u)).contiguous()
 
 
+def _construction_rollout_inputs(case, cdt):
+    """-iH(u) h of a path's construction rollout (its UnitaryTrajectory's
+    seed pulse on the knots, one ZOH step an interval), as
+    quantum/dynamics.py hands them to expm: the quickstart's [99, 2, 2],
+    config 4's SX seed [49, 2, 2] (config 1's too) and config 2's qutrit
+    seed [99, 3, 3]."""
+    import torch
+    import piccolax_torch as pt
+    if case == "qs":
+        sysq = pt.QuantumSystem(0.5 * pt.PAULIS["Z"], [pt.PAULIS["X"], pt.PAULIS["Y"]],
+                                1.0)
+        N, T, scale = QS_N, QS_T, 0.1
+    elif case == "c4":
+        sysq = pt.QuantumSystem(np.zeros((2, 2)),
+                                [pt.PAULIS["X"] / 2, pt.PAULIS["Y"] / 2], 1.0)
+        N, T, scale = C4_N, C4_T, 0.01
+    else:
+        sysq = pt.TransmonSystem(levels=3, omega=4.0, delta=0.2, drive_bounds=0.2)
+        N, T, scale = C2_N, C2_T, 0.01
+    u = scale * np.random.default_rng(0).standard_normal((N, 2))
+    u = torch.as_tensor(u[:-1], device="cuda")
+    if cdt is np.complex64:
+        u = u.float()
+    return (-1j * (T / (N - 1)) * sysq.H(u)).contiguous()
+
+
 def check_expm_pade13(record, reps=20):
     """Phase 3, K5: the rollout's Pade-13 expm against its plain version
     on [256 * 990, 2, 2] (the batched quickstart's rollout size) and on
@@ -632,7 +711,9 @@ def check_expm_pade13(record, reps=20):
     of the kernel at both ends), complex128 and complex64, with
     every squaring count and norms within two ulps of each count's edge,
     and on the batched quickstart rollout's own inputs [256, 990, 2, 2]
-    (s = 0). Each matrix holds to tol relative for s <= 6 and tol *
+    (s = 0) and on the construction rollouts of the quickstart, config 4
+    and config 2 ([99, 2, 2], [49, 2, 2], [99, 3, 3]; s = 0, wrapper
+    time: host-bound). Each matrix holds to tol relative for s <= 6 and tol *
     2^(s-6) above (s squarings multiply a rounding difference by up to
     2^s; the kernel solves for F directly where the plain version runs
     piccolax's Newton-Schulz steps); the per-matrix s must agree. The
@@ -644,14 +725,19 @@ def check_expm_pade13(record, reps=20):
     rng = np.random.default_rng(5)
     main = None
     sub = {}
+    own = {"qs256": 2, "qs": 2, "c4": 2, "c2": 3}      # the paths' own inputs
     cases = [(2, QS_B * (QS_N - 1) * 10), *((n, 16 * 199) for n in (1, 3, 4, 5, 8, 9, 16)),
-             ("qs256", QS_B * (QS_N - 1) * 10)]
+             ("qs256", QS_B * (QS_N - 1) * 10), ("qs", QS_N - 1), ("c4", C4_N - 1),
+             ("c2", C2_N - 1)]
     for case, M in cases:
         for cdt, tol in ((np.complex128, 1e-12), (np.complex64, 1e-4)):
-            n = 2 if case == "qs256" else case
+            n = own.get(case, case)
             if case == "qs256":
                 A = _qs256_rollout_inputs(cdt)
                 key = f"qs256 rollout [{QS_B},{(QS_N - 1) * 10},2,2] {cdt.__name__}"
+            elif case in own:
+                A = _construction_rollout_inputs(case, cdt)
+                key = f"{case} construction rollout [{M},{n},{n}] {cdt.__name__}"
             else:
                 A = torch.as_tensor(ex.anti_hermitian_by_squarings(M, n, rng, cdt),
                                     device="cuda")
@@ -662,7 +748,7 @@ def check_expm_pade13(record, reps=20):
             _check(torch.equal(s, s_ref), f"expm {key}: "
                    f"{int((s != s_ref).sum())} squaring counts differ")
             every = set(s.unique().tolist()) == set(range(17))
-            _check(every or key.startswith("qs256"), f"expm {key}: inputs miss a squaring count")
+            _check(every or case in own, f"expm {key}: inputs miss a squaring count")
             d = (got - ref).abs().amax(dim=(-2, -1))
             rel = d / ref.abs().amax(dim=(-2, -1))
             lim = tol * torch.pow(2.0, torch.clamp(s - 6, min=0).double())
@@ -1086,40 +1172,46 @@ def check_k2_widths(reps=5):
 # batches of K3's solve reaching every cluster size it launches with (16,
 # 8, 4, 2, 1: the wrapper's choice, lowered where the card cannot hold all
 # B clusters at once)
-CR_SOLVE_BATCHES = (1, 2, 12, 16, 24, 64, 256)
+CR_SOLVE_BATCHES = (1, 2, 12, 16, 24, 64, 256, 1024)
+# the cluster plans of configs 4 and 2 at their own shapes: (B, N, dz, m)
+CR_SOLVE_PATHS = ((C4_B, C4_N, 14, 12), (C2_B, C2_N, 24, 22))
 
 
 def check_cr_solve_clusters(reps=5):
     """Phase 3, K3's solve at every cluster size: B of CR_SOLVE_BATCHES,
     N = 13 (short of 16) and N = 2, float64 at the quickstart's blocks
-    (dz = 15, m = 13) and float32 at the CNOT's (44, 40), held as
-    _cr_accuracy holds it (float64 to 1e-9, float32 against the plain
-    version in float64, 2x rule); each solve call must count one
-    condensed_solve launch, and every cluster size must have run."""
+    (dz = 15, m = 13) and float32 at the CNOT's (44, 40), then float32 at
+    the shapes of configs 4 and 2 (CR_SOLVE_PATHS), held as _cr_accuracy
+    holds it (float64 to 1e-9, float32 against the plain version in
+    float64, 2x rule); each solve call must count one condensed_solve
+    launch, and every cluster size must have run."""
     from piccolax_torch import _kernels
     from piccolax_torch.solver import kkt
 
     rng = np.random.default_rng(28)
     lib = _kernels.load("cr_solve")
     ran = set()
-    for dtype, dz, m in (("float64", 15, 13), ("float32", 44, 40)):
-        for B in CR_SOLVE_BATCHES:
-            S = lib.px_condensed_solve_cluster(int(dtype == "float64"), B, m, dz, 1)
-            _check(S > 0, f"condensed_solve B={B} {dtype}: no launch plan")
-            ran.add(S)
-            line = []
-            for N in (13, 2):
-                label = f"[{B},{N},{dz},{dz}] m={m} {dtype}"
-                (_, C, _, Cn, rhs), (Xi, fk), _, _, err_s, _ = _cr_accuracy(
-                    B, N, dz, m, dtype, rng, label)
-                before = _kernels.LAUNCHES["condensed_solve"]
-                kkt.condensed_solve((Xi, fk), C, Cn, rhs, dz)
-                _check(_kernels.LAUNCHES["condensed_solve"] == before + 1,
-                       f"condensed_solve {label}: not one launch a call")
-                ms = _time_ms(lambda: kkt.condensed_solve((Xi, fk), C, Cn, rhs, dz), reps)
-                line.append(f"N={N} max_err={err_s:.2e} kernel_ms={ms:.4f}")
-            print(f"cr solve B={B} {dtype} dz={dz} m={m}, cluster {S}: " + "; ".join(line),
-                  flush=True)
+    cases = [(dtype, dz, m, B, (13, 2))
+             for dtype, dz, m in (("float64", 15, 13), ("float32", 44, 40))
+             for B in CR_SOLVE_BATCHES]
+    cases += [("float32", dz, m, B, (N,)) for B, N, dz, m in CR_SOLVE_PATHS]
+    for dtype, dz, m, B, Ns in cases:
+        S = lib.px_condensed_solve_cluster(int(dtype == "float64"), B, m, dz, 1)
+        _check(S > 0, f"condensed_solve B={B} {dtype}: no launch plan")
+        ran.add(S)
+        line = []
+        for N in Ns:
+            label = f"[{B},{N},{dz},{dz}] m={m} {dtype}"
+            (_, C, _, Cn, rhs), (Xi, fk), _, _, err_s, _ = _cr_accuracy(
+                B, N, dz, m, dtype, rng, label)
+            before = _kernels.LAUNCHES["condensed_solve"]
+            kkt.condensed_solve((Xi, fk), C, Cn, rhs, dz)
+            _check(_kernels.LAUNCHES["condensed_solve"] == before + 1,
+                   f"condensed_solve {label}: not one launch a call")
+            ms = _time_ms(lambda: kkt.condensed_solve((Xi, fk), C, Cn, rhs, dz), reps)
+            line.append(f"N={N} max_err={err_s:.2e} kernel_ms={ms:.4f}")
+        print(f"cr solve B={B} {dtype} dz={dz} m={m}, cluster {S}: " + "; ".join(line),
+              flush=True)
     _check(ran >= {1, 2, 4, 8, 16}, f"condensed_solve ran cluster sizes {sorted(ran)} only")
 
 
@@ -1541,10 +1633,21 @@ def check_knot_tridiag(record, reps=20):
                    variant=f"{name}, P={P}")
 
 
-def _eigh_clamp(W, floor_rel):
+# cusolver's batched eigh refuses [1024 * 50, 14, 14] in one call
+# (CUSOLVER_STATUS_INVALID_VALUE); 12800 matrices (config 1's) go through
+EIGH_CHUNK = 12800
+
+
+def _eigh_clamp(W, floor_rel, mode="pos"):
+    """The library yardstick of K2: eigh, max(lam, 0) ("pos") or |lam|
+    ("abs"), plus the floor; eigh in calls of at most EIGH_CHUNK matrices."""
     import torch
-    ew, V = torch.linalg.eigh(W)
-    return (V * torch.clamp(ew, min=0)[..., None, :]) @ V.mT + \
+    n = W.shape[-1]
+    parts = [torch.linalg.eigh(c) for c in W.reshape(-1, n, n).split(EIGH_CHUNK)]
+    ew = torch.cat([p[0] for p in parts]).reshape(*W.shape[:-1])
+    V = torch.cat([p[1] for p in parts]).reshape(W.shape)
+    ew = torch.clamp(ew, min=0) if mode == "pos" else ew.abs()
+    return (V * ew[..., None, :]) @ V.mT + \
         floor_rel * torch.eye(W.shape[-1], device=W.device, dtype=W.dtype)
 
 
@@ -2015,6 +2118,171 @@ def cnot_qd(run_k):
     return launches
 
 
+# configs 4 and 2 on "cr": K1-K4, and K5 in the construction rollout
+C4_C2_KERNELS = [*C3_KERNELS, "expm_pade13"]
+
+
+def _c4_options(**kw):
+    import piccolax_torch as pt
+    return pt.IPMOptions(**{**dict(max_iter=60, tol=5e-3, constr_viol_tol=5e-3,
+                                   ls_iters=6, clamp_iters=15), **kw})
+
+
+def config4():
+    """Phase 13: config 4, the robustness ensemble of 1024 SX problems
+    (N = 50, T = 10) whose drifts carry a detuning eps sigma_z / 2 (eps =
+    0.02 N(0, 1), seed 0), built by robustness_ensemble and solved by
+    batch_solve in one batched float32 solve with bench.py's options;
+    gated by 1024/1024 converged and a per-sample float64 DOP853
+    re-integration under each sample's own drift, F > 0.999 on all. The
+    counted run includes the construction (K5's rollout of the seed pulse);
+    a 2-iteration solve of another build warms up first."""
+    import torch
+    import piccolax_torch as pt
+    from piccolax_torch import _kernels
+    from piccolax_torch.quantum.gates import GATES
+    from piccolax_torch.verification import (batched_unitary_dop853,
+                                             iso_vec_to_operator_np,
+                                             unitary_fidelity_np)
+
+    nlp, params, Z0, _ = pt.robustness_ensemble(n_samples=C4_B, N=C4_N, T=C4_T,
+                                                device="cuda")
+    pt.batch_solve(nlp, params, Z0.float(), options=_c4_options(max_iter=2),
+                   device="cuda")
+    _kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    nlp, params, Z0, layout = pt.robustness_ensemble(n_samples=C4_B, N=C4_N,
+                                                     T=C4_T, device="cuda")
+    _sync()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = pt.batch_solve(nlp, params, Z0.float(), options=_c4_options(), device="cuda")
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches("config-4", C4_C2_KERNELS,
+                              ["knot_factor", "knot_solve", *OFF_PATH])
+    its = st.it.cpu().numpy()
+    iters = int(its.max())
+    print(f"config-4: B={C4_B} N={C4_N} f32, batch_solve (kkt_backend cr), build "
+          f"{t_build:.3f} s, {iters} iterations (max; mean {its.mean():.2f}, min "
+          f"{its.min()}), solve {seconds:.3f} s, {C4_B / seconds:.2f} solves/s; per "
+          f"IPM iteration: " + json.dumps({k: round(v / iters, 2)
+                                          for k, v in launches.items()}), flush=True)
+    Z = st.Z.double().cpu().numpy()
+    _check(np.all(np.isfinite(Z)) and Z.shape == (C4_B, C4_N, layout.z_dim),
+           f"config-4 solution not finite or of shape {Z.shape}")
+    t1 = time.perf_counter()
+    eps = 0.02 * np.random.default_rng(0).standard_normal(C4_B)
+    _check(np.allclose(params["system"].G_drift[:, 2, 0].cpu().numpy(), -eps / 2,
+                       rtol=0, atol=1e-15), "config-4 drifts are not eps sigma_z / 2")
+    X = np.array([[0, 1], [1, 0]], complex)
+    Y = np.array([[0, -1j], [1j, 0]], complex)
+    Zp = np.array([[1, 0], [0, -1]], complex)
+    U64 = batched_unitary_dop853(eps[:, None, None] * Zp[None] / 2, [X / 2, Y / 2],
+                                 Z[:, :, layout.slices["u"]], np.linspace(0, C4_T, C4_N))
+    Fs = unitary_fidelity_np(U64, GATES["SX"])
+    F_rep = unitary_fidelity_np(iso_vec_to_operator_np(Z[:, -1, layout.slices["U"]]),
+                                GATES["SX"])
+    dF = np.abs(F_rep - Fs)
+    n_conv = int(st.converged.sum().item())
+    print(f"config-4 quality: converged={n_conv}/{C4_B}, per-sample f64-DOP853 "
+          f"mean_F={Fs.mean():.6f}, min_F={Fs.min():.6f}, frac_F>0.999="
+          f"{np.mean(Fs > 0.999):.4f}, mean|dF|={dF.mean():.2e}, "
+          f"max|dF|={dF.max():.2e}, dop853 {time.perf_counter() - t1:.1f} s", flush=True)
+    _check(n_conv == C4_B, f"config-4: converged {n_conv}/{C4_B}")
+    _check(bool(np.all(Fs > 0.999)), f"config-4: F > 0.999 on "
+           f"{int((Fs > 0.999).sum())}/{C4_B} only")
+    return launches
+
+
+def _c2_options(**kw):
+    import piccolax_torch as pt
+    return pt.IPMOptions(**{**dict(max_iter=300, tol=5e-3, constr_viol_tol=5e-3,
+                                   hess_mode="abs", delta_c_f32=1e-4, prox_iter=3),
+                            **kw})
+
+
+def _c2_start(prob, layout, Z0):
+    """B = 64 starting points: Z0 with its pulse columns perturbed by
+    0.005 N(0, 1) (seed 0), as bench.py's config-2 run."""
+    import torch
+    u_sl = layout.slices["u"]
+    rng = np.random.default_rng(0)
+    Zb = np.broadcast_to(Z0.cpu().numpy().astype(np.float32)[None],
+                         (C2_B, C2_N, layout.z_dim)).copy()
+    Zb[:, :, u_sl] += 0.005 * rng.standard_normal(
+        (C2_B, C2_N, u_sl.stop - u_sl.start)).astype(np.float32)
+    return torch.as_tensor(Zb, device="cuda")
+
+
+def config2():
+    """Phase 14: config 2, the X gate on the 0-1 subspace of a 3-level
+    transmon with leakage suppression (N = 100, T = 20; embedded goal,
+    Pedersen subspace fidelity, leakage cost), B = 64 in float32 with
+    bench.py's options; gated by >= 62/64 converged and the float64 DOP853
+    subspace fidelity (Pedersen, 2 x 2 block): F > 0.99 on all 64 and
+    mean_F >= 0.999. Prints the leakage of the computational block. The
+    counted run includes the construction (K5's rollout of the seed
+    pulse); a 2-iteration solve of another build warms up first."""
+    import piccolax_torch as pt
+    from piccolax_torch import _kernels
+    from piccolax_torch.quantum.gates import GATES
+    from piccolax_torch.verification import (batched_unitary_dop853,
+                                             iso_vec_to_operator_np,
+                                             pedersen_fidelity_np)
+
+    prob = pt.qutrit_x_problem(N=C2_N, T=C2_T, device="cuda")
+    nlp, params, Z0, _, layout = prob.build(device="cuda")
+    pt.solve_nlp(nlp, params, _c2_start(prob, layout, Z0), device="cuda",
+                 options=_c2_options(max_iter=2))
+    _kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    prob = pt.qutrit_x_problem(N=C2_N, T=C2_T, device="cuda")
+    nlp, params, Z0, _, layout = prob.build(device="cuda")
+    Zb = _c2_start(prob, layout, Z0)
+    _sync()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = pt.solve_nlp(nlp, params, Zb, options=_c2_options(), device="cuda")
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches("config-2", C4_C2_KERNELS,
+                              ["knot_factor", "knot_solve", *OFF_PATH])
+    its = st.it.cpu().numpy()
+    iters = int(its.max())
+    n_max = int((its >= 300).sum())
+    print(f"config-2: B={C2_B} N={C2_N} f32, kkt_backend cr, hess_mode abs, build "
+          f"{t_build:.3f} s, {iters} iterations (max; mean {its.mean():.2f}, min "
+          f"{its.min()}; {n_max} at max_iter), solve {seconds:.3f} s, "
+          f"{C2_B / seconds:.3f} solves/s; per IPM iteration: "
+          + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}), flush=True)
+    Z = st.Z.double().cpu().numpy()
+    _check(np.all(np.isfinite(Z)) and Z.shape == (C2_B, C2_N, layout.z_dim),
+           f"config-2 solution not finite or of shape {Z.shape}")
+    t1 = time.perf_counter()
+    sysq = prob.qtraj.system
+    U64 = batched_unitary_dop853(sysq.H_drift, np.stack(sysq.H_drives),
+                                 Z[:, :, layout.slices["u"]], np.linspace(0, C2_T, C2_N))
+    goal = GATES["X"]
+    Fs = pedersen_fidelity_np(U64[:, :2, :2], goal)
+    leaks = 1.0 - np.einsum("bij,bij->b", U64[:, :2, :2].conj(), U64[:, :2, :2]).real / 2
+    U_rep = iso_vec_to_operator_np(Z[:, -1, layout.slices["U"]])
+    dF = np.abs(pedersen_fidelity_np(U_rep[:, :2, :2], goal) - Fs)
+    n_conv = int(st.converged.sum().item())
+    print(f"config-2 quality: converged={n_conv}/{C2_B}, f64-DOP853 subspace "
+          f"mean_F={Fs.mean():.6f}, min_F={Fs.min():.6f}, frac_F>0.99="
+          f"{np.mean(Fs > 0.99):.4f}, mean_leakage={leaks.mean():.3e}, "
+          f"mean|dF|={dF.mean():.2e}, max|dF|={dF.max():.2e}, dop853 "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    _check(n_conv >= 62, f"config-2: converged {n_conv}/{C2_B}")
+    _check(bool(np.all(Fs > 0.99)), f"config-2: F > 0.99 on "
+           f"{int((Fs > 0.99).sum())}/{C2_B} only")
+    _check(Fs.mean() >= 0.999, f"config-2: mean_F {Fs.mean():.6f} < 0.999")
+    return launches
+
+
 def profile(name, fn, iters=None):
     """Run fn under torch.profiler: wall, device busy time and idle share of
     the profiled run, and device time by kernel."""
@@ -2114,16 +2382,22 @@ def main():
     check_knot_solve_clusters()
     check_caps()
     check_tri_lower_inv(record, reps=5)
+    check_kernels(C4_B, C4_N, 14, 12, "float32", record, reps=5,
+                  variant="config4_float32")
+    check_kernels(C2_B, C2_N, 24, 22, "float32", record, reps=5, clamp=(20, 3e-3),
+                  k4=False, variant="config2_float32", k2_mode="abs")
     check_kernels(C3_B, C3_N, 44, 40, "float32", record, reps=5, clamp=(20, 3e-3),
                   k4=False, variant="config3_float32")
     check_kernels(1, C3_N, 44, 40, "float64", record, reps=5, k4=False,
                   variant="config3_float64")
     # phase 10: B = 16, f32, no Newton candidate (2 directions x 8 steps);
     # phase 11: B = 1, f64, with it (3 x 8)
-    check_expm_cnot(C3_B, 2 * 8, "float32", record)
-    check_expm_cnot(1, 3 * 8, "float64", record)
-    check_expm_cnot(C3_B, 2 * 8, "float32", record, pade_order=7)
-    check_expm_cnot(1, 3 * 8, "float64", record, pade_order=7)
+    check_expm_sweep("config3", C3_B, 2 * 8, "float32", record)
+    check_expm_sweep("config3", 1, 3 * 8, "float64", record)
+    check_expm_sweep("config3", C3_B, 2 * 8, "float32", record, pade_order=7)
+    check_expm_sweep("config3", 1, 3 * 8, "float64", record, pade_order=7)
+    # config 2: B = 64, f32, no Newton candidate (2 directions x 8 steps)
+    check_expm_sweep("config2", C2_B, 2 * 8, "float32", record)
     check_expm_derivatives(record)
     check_knot(1, C3_N, 44, 40, "float64", record)
     check_knot(C3_B, C3_N, 44, 40, "float32", record)
@@ -2142,6 +2416,8 @@ def main():
     paths["cnot_cr_40"] = run_k["cr_launches"]
     paths["config3_qd"], run3q = config3(kkt_backend="qd")
     paths["cnot_qd"] = cnot_qd(run_k)
+    paths["config4"] = config4()
+    paths["config2"] = config2()
     if args.profile:
         profile("config 1 solve (B=256, f32)",
                 lambda: pt.solve_nlp(*run1[:3], options=run1[3], device="cuda"))

@@ -8,25 +8,42 @@ jnp.where. No kernel is reached: derivatives come from `torch.func`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..quantum import dynamics as dyn
+from ..quantum import isomorphisms as iso
+from ..solver.nlp import batch_view
 
-__all__ = ["UnitaryInfidelityObjective", "QuadraticRegularizer"]
+__all__ = ["UnitaryInfidelityObjective", "QuadraticRegularizer",
+           "LeakageObjective"]
 
 
 class UnitaryInfidelityObjective:
-    """Q * (1 - F(U_{N-1}, goal)) with the bounded iso fidelity."""
+    """Q * (1 - F(U_{N-1}, goal)) with the bounded iso fidelity; the
+    bounded Pedersen fidelity of the subspace block when the goal is
+    embedded (`subspace` its indices)."""
 
     def __init__(self, state_name: str, Q: float = 100.0, subspace=None):
-        if subspace is not None:
-            raise NotImplementedError("subspace (embedded-goal) fidelity")
         self.state_name = state_name
         self.Q = Q
+        self.subspace = None if subspace is None else np.asarray(subspace)
+        self._idx = {}                  # iso indices of the subspace block, by device
+
+    def fidelity(self, x, params):
+        goal = batch_view(params["goal"][self.state_name], 1, x.dim() - 1)
+        if self.subspace is not None:
+            idx = self._idx.get(x.device)
+            if idx is None:
+                n = int(round(np.sqrt(x.shape[-1] // 2)))
+                idx = self._idx[x.device] = torch.as_tensor(
+                    iso.operator_subspace_iso_indices(n, self.subspace),
+                    device=x.device)
+            return dyn.pedersen_fidelity_iso_bounded(x[..., idx], goal[..., idx], x)
+        return dyn.unitary_fidelity_iso_bounded(x, goal)
 
     def knot_cost(self, get, term, params):
-        F = dyn.unitary_fidelity_iso_bounded(get(self.state_name),
-                                             params["goal"][self.state_name])
+        F = self.fidelity(get(self.state_name), params)
         return term * (self.Q * (1.0 - F))
 
 
@@ -41,3 +58,22 @@ class QuadraticRegularizer:
         v = get(self.name)
         R = torch.as_tensor(self.R, dtype=v.dtype, device=v.device)
         return 0.5 * torch.sum(R * v ** 2, dim=-1)
+
+
+class LeakageObjective:
+    """Q * sum_k ||x_k[indices]||^2: the population outside the
+    computational subspace, summed over the knots; `indices` are iso-vec
+    component indices of leakage entries."""
+
+    def __init__(self, state_name: str, indices, Q: float = 1.0):
+        self.state_name = state_name
+        self.indices = np.asarray(indices)
+        self.Q = Q
+        self._idx = {}                  # self.indices as a tensor, by device
+
+    def knot_cost(self, get, term, params):
+        x = get(self.state_name)
+        idx = self._idx.get(x.device)
+        if idx is None:
+            idx = self._idx[x.device] = torch.as_tensor(self.indices, device=x.device)
+        return self.Q * torch.sum(x[..., idx] ** 2, dim=-1)

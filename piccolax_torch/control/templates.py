@@ -1,10 +1,11 @@
 """Problem templates: `SmoothPulseProblem`, on the unitary-gate path of
 `piccolax.control.templates` (ZOH pulse, chained derivatives u -> du ->
 ddu, bilinear unitary dynamics, terminal infidelity, quadratic
-regularizers, optionally free and equal timesteps)."""
+regularizers, optionally free and equal timesteps and a leakage cost)."""
 
 from __future__ import annotations
 
+from ..quantum.operators import get_iso_vec_leakage_indices
 from ..quantum.trajectories import UnitaryTrajectory, discretize
 from . import integrators as intg
 from . import objectives as obj
@@ -29,11 +30,12 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
     decision variables, held equal unless timesteps_all_equal=False.
     pade_order is "taylor" (the Taylor approximant, K4) or a diagonal Pade
     order in {3, 5, 7, 9} (K6) for the collocation propagators; any other
-    value raises ValueError."""
+    value raises ValueError. leakage_cost adds a `LeakageObjective` on
+    leakage_indices (iso-vec indices), derived from an embedded goal's
+    subspace when none are given."""
     unported = {
         "free_phase": bool(free_phase),
-        "leakage": (leakage_indices is not None or bool(leakage_cost)
-                    or leakage_value is not None),
+        "leakage_value (LeakageConstraint)": leakage_value is not None,
         "options records": options is not None,
         "extra constraints": bool(tuple(extra_constraints)),
         "extra objectives": bool(tuple(extra_objectives)),
@@ -45,6 +47,10 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
             raise NotImplementedError(f"SmoothPulseProblem: {what}")
     if not isinstance(qtraj, UnitaryTrajectory):
         raise NotImplementedError("only UnitaryTrajectory is ported")
+    leakage_cost = leakage_cost or 0.0
+    if leakage_indices is None and leakage_cost and qtraj.subspace is not None:
+        leakage_indices = get_iso_vec_leakage_indices(qtraj.subspace,
+                                                      qtraj.system.levels)
     zero_d = bool(zero_initial_and_final_derivative)
     if state_bound == "box":
         state_bound = 1.0
@@ -73,7 +79,8 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
     integrators = [intg.BilinearUnitaryIntegrator(
         qtraj.state_name, dname, qtraj.system.levels, order=pade_order,
         squarings=squarings)]
-    objectives = [obj.UnitaryInfidelityObjective(qtraj.state_name, Q=Q)]
+    objectives = [obj.UnitaryInfidelityObjective(qtraj.state_name, Q=Q,
+                                                 subspace=qtraj.subspace)]
     names = [dname, "d" + dname, "dd" + dname]
     d = traj.dims[dname]
     for a, b in zip(names[:-1], names[1:]):
@@ -83,4 +90,7 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
     for Ri, nm in zip((R_u, R_du, R_ddu), names):
         if Ri is not None and Ri != 0:
             objectives.append(obj.QuadraticRegularizer(nm, Ri))
+    if leakage_indices is not None and leakage_cost:
+        objectives.append(obj.LeakageObjective(qtraj.state_name,
+                                               leakage_indices, Q=leakage_cost))
     return QuantumControlProblem(qtraj, traj, objectives, integrators)

@@ -12,6 +12,12 @@ variable instead); G_drift [2n, 2n]; G_drives [nd, 2n, 2n]; goal [2n^2];
 Q (float); R (R_u, R_du, R_ddu); slices {name: (start, stop)} over the
 knot columns; state_name, drive_name (str); squarings (int); optional
 timesteps_all_equal (bool, default True: free timesteps held equal).
+
+A batch of problems that share their structure and differ in their data
+(piccolax's `params_batch`, as `robustness_ensemble` builds it) gives
+Z0, pin_val, t, dt, G_drift and goal a leading batch axis of B; they
+become the port's batched params (solver/nlp.py). The drives and the
+bounds stay shared.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
     U, u = a["state_name"], a["drive_name"]
     goal = np.asarray(a["goal"], float)
     levels = int(round(np.sqrt(goal.shape[-1] // 2)))
+    N = np.asarray(a["lo"]).shape[0]
     nd = layout.slices[u].stop - layout.slices[u].start
     derivs = [u, "d" + u, "dd" + u]
     integrators = [BilinearUnitaryIntegrator(U, u, levels,
@@ -56,11 +63,11 @@ def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
     nl_cols = [c for n in names if n in (u, "dt")
                for c in range(layout.slices[n].start, layout.slices[n].stop)]
     lin_cols = [c for c in range(layout.z_dim) if c not in nl_cols]
-    frozen = {"t": np.asarray(a["t"], float)[:, None]}
+    frozen = {"t": np.asarray(a["t"], float)[..., None]}
     if not dt_free:
-        frozen["dt"] = np.asarray(a["dt"], float)[:, None]
+        frozen["dt"] = np.asarray(a["dt"], float)[..., None]
     nlp = CollocationNLP(
-        N=np.asarray(a["Z0"]).shape[0], dz=layout.z_dim,
+        N=N, dz=layout.z_dim,
         md=sum(i.dim for i in integrators), objectives=objectives,
         integrators=integrators, layout=layout,
         lo=np.asarray(a["lo"], float), hi=np.asarray(a["hi"], float),

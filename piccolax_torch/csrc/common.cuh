@@ -594,10 +594,12 @@ __host__ __device__ inline int condense_smem(int m, int dz, int nt, bool whole) 
 // D_k = Y_k Y_k^T + Yn_k Yn_k^T + diag(Rd_k) and U_k = Yn_k Y_{k+1}^T
 // (zero at k = N - 1) into D, U [B, N, m, m]. Knot k + 1's Y is formed
 // again by its own group: a third more products and no second launch.
-template <typename T, bool kNarrow>
+// The inputs are of type Ti, read into T (K3 forms a float32 problem's
+// system in float64).
+template <typename T, bool kNarrow, typename Ti = T>
 __global__ void __launch_bounds__(kGemmThreads, kNarrow ? kNarrowMinBlocks : kGemmMinBlocks)
-condense_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
-                const T* __restrict__ R_g, const T* __restrict__ Cn_g, T* __restrict__ D_g,
+condense_kernel(const Ti* __restrict__ Xi_g, const Ti* __restrict__ C_g,
+                const Ti* __restrict__ R_g, const Ti* __restrict__ Cn_g, T* __restrict__ D_g,
                 T* __restrict__ U_g, T* __restrict__ Y_g, int B, int N, int m,
                 int dz PX_CR_PARAM) {
   PX_SMEM(T);
@@ -608,10 +610,10 @@ condense_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
   const int mm = m * m, md = m * dz, dd = dz * dz;
   T* Dp = smem + g.index * condense_smem(m, dz, g.nt, kNarrow);   // Y Y^T
   T* sm = Dp + mm;
-  const T* Xi = Xi_g + j * dd;
-  const T* C = C_g + j * md;
-  const T* Rd = R_g + j * m;
-  const T* Cn = Cn_g + ((long long)b * (N - 1) + k) * md;
+  const Ti* Xi = Xi_g + j * dd;
+  const Ti* C = C_g + j * md;
+  const Ti* Rd = R_g + j * m;
+  const Ti* Cn = Cn_g + ((long long)b * (N - 1) + k) * md;
   T* Y = Y_g + j * 3 * md;
   T* Yn = Y + md;
   T* Y1 = Yn + md;
@@ -621,14 +623,14 @@ condense_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
   PX_CR_BEGIN();
   // Y(a, c) = sum_e C(a, e) Xi(c, e)
   block_gemm<T, true, false, kNarrow>(
-      m, dz, dz, [&](int a, int e) { return C[a * dz + e]; },
-      [&](int e, int c) { return Xi[c * dz + e]; },
+      m, dz, dz, [&](int a, int e) { return T(C[a * dz + e]); },
+      [&](int e, int c) { return T(Xi[c * dz + e]); },
       [&](int a, int c, T v) { Y[a * dz + c] = v; }, sm, g);
   if (next)                                      // [Yn; Y1] = [Cn_k; C_{k+1}] Xi_{k+1}^T
     block_gemm<T, true, false, kNarrow>(
         2 * m, dz, dz,
-        [&](int a, int e) { return a < m ? Cn[a * dz + e] : C[md + (a - m) * dz + e]; },
-        [&](int e, int c) { return Xi[dd + c * dz + e]; },
+        [&](int a, int e) { return T(a < m ? Cn[a * dz + e] : C[md + (a - m) * dz + e]); },
+        [&](int e, int c) { return T(Xi[dd + c * dz + e]); },
         [&](int a, int c, T v) { Yn[a * dz + c] = v; }, sm, g);   // Y1 follows Yn
   g.sync();                                      // Y, Yn, Y1 written
   PX_CR_KSTAMP(3);
@@ -642,12 +644,12 @@ condense_kernel(const T* __restrict__ Xi_g, const T* __restrict__ C_g,
     gram(Y, Y, [&](int a, int c, T v) { Dp[a * m + c] = v; });
     gram(Yn, Yn, [&](int a, int c, T v) {
       const T dv = Dp[a * m + c] + v;
-      D[a * m + c] = a == c ? dv + Rd[a] : dv;
+      D[a * m + c] = a == c ? dv + T(Rd[a]) : dv;
     });
     PX_CR_KSTAMP(4);
     gram(Yn, Y1, [&](int a, int c, T v) { U[a * m + c] = v; });
   } else {
-    gram(Y, Y, [&](int a, int c, T v) { D[a * m + c] = a == c ? v + Rd[a] : v; });
+    gram(Y, Y, [&](int a, int c, T v) { D[a * m + c] = a == c ? v + T(Rd[a]) : v; });
     for (int idx = g.tid; idx < mm; idx += g.nt) U[idx] = T(0);
     PX_CR_KSTAMP(4);
   }
@@ -719,13 +721,14 @@ __host__ __device__ inline int elim_smem(int m, int nt) {
 
 // Elimination of odd row 2j + 1 of level (a group a row and system,
 // row s half + j): Xi = chol_inv(D_{2j+1}), Ul = U_{2j}, Ur = U_{2j+1}
-// into slot off + j of the system's cr planes 0, 1, 2 (cr + s crs), then
+// into slot off + j of the system's cr planes 0, 1, 2 (cr + s crs, of
+// type To: K3 rounds a float32 problem's factor there once), then
 // [Gl_j | Gr_j] = Xi [Ul^T | Ur] into [S, half, m, m] each. root: the last
 // level's one row, chol_inv(D_0) into slot off with zero couplings. A
 // non-PD block gives an all-NaN Xi.
-template <typename T, int W>
+template <typename T, int W, typename To = T>
 __global__ void __launch_bounds__(chol_threads(W), chol_min_blocks(W, sizeof(T), chol_threads(W)))
-cr_elim_kernel(Rows<T> in, T* __restrict__ cr, long long crs, int S, int Np, int off,
+cr_elim_kernel(Rows<T> in, To* __restrict__ cr, long long crs, int S, int Np, int off,
                int half, int m, int root, T* __restrict__ Gl, T* __restrict__ Gr PX_CR_PARAM) {
   PX_SMEM(T);
   const Group g(rows_per_block(m));
@@ -747,14 +750,14 @@ cr_elim_kernel(Rows<T> in, T* __restrict__ cr, long long crs, int S, int Np, int
   chol_inv<T, W>(A, ld, X, ld, m, g.tid / 32, g.tid % 32, A, 1);
   g.sync();
   PX_CR_KSTAMP(3);
-  T* Xcr = cr + s * crs + (long long)(off + j) * mm;
-  T* Lcr = Xcr + (long long)Np * mm;
-  T* Rcr = Lcr + (long long)Np * mm;
+  To* Xcr = cr + s * crs + (long long)(off + j) * mm;
+  To* Lcr = Xcr + (long long)Np * mm;
+  To* Rcr = Lcr + (long long)Np * mm;
   for (int idx = g.tid; idx < mm; idx += g.nt) {
     const int a = idx / m;
-    Xcr[idx] = X[a * ld + idx - a * m];
-    Lcr[idx] = Ul[idx];
-    Rcr[idx] = Ur[idx];
+    Xcr[idx] = To(X[a * ld + idx - a * m]);
+    Lcr[idx] = To(Ul[idx]);
+    Rcr[idx] = To(Ur[idx]);
   }
   PX_CR_KSTAMP(4);
   if (!root) {
@@ -819,13 +822,13 @@ cr_update_kernel(Rows<T> in, const T* __restrict__ Gl, const T* __restrict__ Gr,
   PX_CR_END();
 }
 
-template <typename T, int W>
-int launch_elim(const Rows<T>& in, T* cr, long long crs, int S, int Np, int off, int half,
+template <typename T, int W, typename To>
+int launch_elim(const Rows<T>& in, To* cr, long long crs, int S, int Np, int off, int half,
                 int m, int root, T* Gl, T* Gr, cudaStream_t st PX_CR_PARAM) {
   const int rows = rows_per_block(m), nt = chol_threads(W);
   const size_t smem = sizeof(T) * rows * elim_smem(m, nt / rows);
-  if (int e = smem_for(cr_elim_kernel<T, W>, smem)) return e;
-  cr_elim_kernel<T, W><<<row_blocks((long long)S * half, m), nt, smem, st>>>(
+  if (int e = smem_for(cr_elim_kernel<T, W, To>, smem)) return e;
+  cr_elim_kernel<T, W, To><<<row_blocks((long long)S * half, m), nt, smem, st>>>(
       in, cr, crs, S, Np, off, half, m, root, Gl, Gr PX_CR_ARG(stamps));
   return (int)cudaGetLastError();
 }
@@ -843,9 +846,10 @@ __host__ __device__ inline long long cr_factor_ws(long long S, int Np, int m) {
 // holds the root factor. Per level one elimination launch and one update
 // launch, each a group per row and system (the rows of a level are
 // independent), then one root launch: 2 log2(Np) + 1 launches, which
-// spread a single system's level over as many SMs as it has rows.
-template <typename T>
-int launch_cr_factor(const Rows<T>& in0, int S, int Np, int m, T* cr, long long crs, T* ws,
+// spread a single system's level over as many SMs as it has rows. The
+// levels run in T and the factor is stored as To.
+template <typename T, typename To = T>
+int launch_cr_factor(const Rows<T>& in0, int S, int Np, int m, To* cr, long long crs, T* ws,
                      cudaStream_t st PX_CR_PARAM) {
   const long long blk = (long long)S * (Np > 1 ? Np / 2 : 1) * m * m;
   T* Gl = ws;
@@ -854,13 +858,13 @@ int launch_cr_factor(const Rows<T>& in0, int S, int Np, int m, T* cr, long long 
   const int W = chol_class(m);
   auto elim = [&](const Rows<T>& in, int off, int half, int root, int lvl) {
     switch (W) {
-      case 16: return launch_elim<T, 16>(in, cr, crs, S, Np, off, half, m, root, Gl, Gr, st
+      case 16: return launch_elim<T, 16, To>(in, cr, crs, S, Np, off, half, m, root, Gl, Gr, st
                                          PX_CR_NEXT(root ? 3 : 1, lvl));
-      case 32: return launch_elim<T, 32>(in, cr, crs, S, Np, off, half, m, root, Gl, Gr, st
+      case 32: return launch_elim<T, 32, To>(in, cr, crs, S, Np, off, half, m, root, Gl, Gr, st
                                          PX_CR_NEXT(root ? 3 : 1, lvl));
-      case 48: return launch_elim<T, 48>(in, cr, crs, S, Np, off, half, m, root, Gl, Gr, st
+      case 48: return launch_elim<T, 48, To>(in, cr, crs, S, Np, off, half, m, root, Gl, Gr, st
                                          PX_CR_NEXT(root ? 3 : 1, lvl));
-      default: return launch_elim<T, 64>(in, cr, crs, S, Np, off, half, m, root, Gl, Gr, st
+      default: return launch_elim<T, 64, To>(in, cr, crs, S, Np, off, half, m, root, Gl, Gr, st
                                          PX_CR_NEXT(root ? 3 : 1, lvl));
     }
   };
@@ -887,15 +891,15 @@ int launch_cr_factor(const Rows<T>& in0, int S, int Np, int m, T* cr, long long 
   return elim(cur, Np - 1, 1, 1, lvl);
 }
 
-// D, U [B, N, m, m] of the condensed dual system (condense_kernel), with
-// the workspace Y [B, N, 3, m, dz].
-template <typename T>
-int launch_condense(const T* Xi, const T* C, const T* R, const T* Cn, T* D, T* U, T* Y, int B,
-                    int N, int m, int dz, cudaStream_t st PX_CR_PARAM) {
+// D, U [B, N, m, m] of the condensed dual system (condense_kernel) from
+// inputs of type Ti, with the workspace Y [B, N, 3, m, dz].
+template <typename T, typename Ti = T>
+int launch_condense(const Ti* Xi, const Ti* C, const Ti* R, const Ti* Cn, T* D, T* U, T* Y,
+                    int B, int N, int m, int dz, cudaStream_t st PX_CR_PARAM) {
   const int rows = rows_per_block(m);
   const bool nw = narrow(m, dz);
   const size_t smem = sizeof(T) * rows * condense_smem(m, dz, kGemmThreads / rows, nw);
-  auto kernel = nw ? condense_kernel<T, true> : condense_kernel<T, false>;
+  auto kernel = nw ? condense_kernel<T, true, Ti> : condense_kernel<T, false, Ti>;
   if (int e = smem_for(kernel, smem)) return e;
   kernel<<<row_blocks((long long)B * N, m), kGemmThreads, smem, st>>>(
       Xi, C, R, Cn, D, U, Y, B, N, m, dz PX_CR_NEXT(0, 0));

@@ -22,8 +22,17 @@
 // 82-92% of a factor at the CNOT's blocks and the Cholesky inverses 8-9%:
 // eight warps a problem read row-strided operands from a device-memory
 // workspace. Every product here stages its operands in shared memory with
-// coalesced loads (block_gemm), each entry summed in the earlier order
-// (the wide float32 products in float64).
+// coalesced loads (block_gemm), each entry summed in the earlier order.
+//
+// Every factor runs in float64. A float32 problem's inputs are read into
+// float64 by the condensation and its factor rounded to float32 once, as
+// the elimination stores it: each level's reduced blocks, rounded to
+// float32, would carry an error of the dual system's condition number
+// times float32's epsilon into the next level's Cholesky inverse, and a
+// factor in float32 throughout is no more accurate than the plain
+// version's (on config 4's blocks its end-to-end solve strayed more than
+// 2x the plain version's from float64 on about one draw in 20:
+// scripts/k3_f32_accuracy.py with --baseline).
 //
 // Solve: csrc/cr_solve.cu.
 //
@@ -35,33 +44,35 @@
 
 namespace {
 
-// Workspace of the factor a problem: D and U [N, m, m], Y [N, 3, m, dz],
-// then launch_cr_factor's.
+// Workspace of the factor a problem, in float64 elements: D and U
+// [N, m, m], Y [N, 3, m, dz], then launch_cr_factor's.
 long long factor_ws(int N, int Np, int m, int dz) {
   return 2LL * N * m * m + 3LL * N * m * dz + px::cr_factor_ws(1, Np, m);
 }
 
-template <typename T>
+// Inputs and factor of type Ti, the levels in float64.
+template <typename Ti>
 int launch_factor(const void* Xi, const void* C, const void* Rdiag, const void* Cnext,
                   void* cr, void* ws, int B, int N, int Np, int m, int dz,
                   cudaStream_t st PX_CR_PARAM) {
+  using T = double;
   T* D = static_cast<T*>(ws);
   T* U = D + (long long)B * N * m * m;
   T* Y = U + (long long)B * N * m * m;
   T* wcr = Y + 3LL * B * N * m * dz;
-  int rc = px::launch_condense<T>(static_cast<const T*>(Xi), static_cast<const T*>(C),
-                                  static_cast<const T*>(Rdiag), static_cast<const T*>(Cnext),
+  int rc = px::launch_condense<T>(static_cast<const Ti*>(Xi), static_cast<const Ti*>(C),
+                                  static_cast<const Ti*>(Rdiag), static_cast<const Ti*>(Cnext),
                                   D, U, Y, B, N, m, dz, st PX_CR_ARG(stamps));
   if (rc) return rc;
   const px::Rows<T> rows{px::Knots<T>{D, U, (long long)N * m * m, (long long)N * m * m, N},
                          1, N, 0, N, N - 1};
-  return px::launch_cr_factor<T>(rows, B, Np, m, static_cast<T*>(cr), 3LL * Np * m * m, wcr,
+  return px::launch_cr_factor<T>(rows, B, Np, m, static_cast<Ti*>(cr), 3LL * Np * m * m, wcr,
                                  st PX_CR_ARG(stamps));
 }
 
 }  // namespace
 
-// Workspace of the factor, in elements of T per problem.
+// Workspace of the factor, in float64 elements per problem.
 extern "C" long long px_cr_factor_ws(int N, int Np, int m, int dz) {
   return factor_ws(N, Np, m, dz);
 }

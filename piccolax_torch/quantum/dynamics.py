@@ -15,21 +15,44 @@ import torch
 
 from .._device import resolve_device
 from ..ops.expm import expm
+from .operators import EmbeddedOperator
 from .pulses import _SNAP_TOL, ZeroOrderPulse
 
-__all__ = ["unitary_fidelity", "iso_vec_inner", "unitary_fidelity_iso",
-           "unitary_fidelity_iso_bounded", "step_propagators",
-           "unitary_rollout", "unitary_rollout_fidelity"]
+__all__ = ["unitary_fidelity", "pedersen_fidelity", "iso_vec_inner",
+           "unitary_fidelity_iso", "pedersen_fidelity_iso",
+           "unitary_fidelity_iso_bounded", "pedersen_fidelity_iso_bounded",
+           "step_propagators", "unitary_rollout", "unitary_rollout_fidelity"]
 
 
-def unitary_fidelity(U, U_goal):
+def unitary_fidelity(U, U_goal, subspace=None):
     """|tr(U' U_goal)|^2 / n^2 (batched over leading axes) of complex
-    tensors; U_goal may be an array, moved to U's device."""
+    tensors, optionally restricted to a subspace; U_goal may be an array,
+    moved to U's device."""
     U = torch.as_tensor(U)
     U_goal = torch.as_tensor(U_goal).to(U.device, U.dtype)
+    if subspace is not None:
+        sub = torch.as_tensor(np.asarray(subspace), device=U.device)
+        U = U[..., sub[:, None], sub[None, :]]
+        U_goal = U_goal[..., sub[:, None], sub[None, :]]
     n = U.shape[-1]
     tr = torch.einsum("...ij,...ij->...", torch.conj(U), U_goal)
     return torch.abs(tr) ** 2 / n ** 2
+
+
+def pedersen_fidelity(U_sub, U_goal_sub):
+    """Pedersen average-gate fidelity on a subspace (handles leakage):
+
+        F = (tr(M' M) + |tr M|^2) / (n (n + 1)),  M = U_goal' U_sub
+
+    of complex tensors batched over leading axes; U_goal_sub may be an
+    array, moved to U_sub's device."""
+    U_sub = torch.as_tensor(U_sub)
+    U_goal_sub = torch.as_tensor(U_goal_sub).to(U_sub.device, U_sub.dtype)
+    n = U_sub.shape[-1]
+    M = U_goal_sub.mH @ U_sub
+    t1 = torch.abs(torch.einsum("...ij,...ij->...", torch.conj(M), M))
+    t2 = torch.abs(torch.einsum("...ii->...", M)) ** 2
+    return (t1 + t2) / (n * (n + 1))
 
 
 def iso_vec_inner(x, y):
@@ -49,6 +72,25 @@ def unitary_fidelity_iso(x_iso, goal_iso):
     n = int(round(np.sqrt(x_iso.shape[-1] // 2)))
     re, im = iso_vec_inner(x_iso, goal_iso)
     return (re ** 2 + im ** 2) / n ** 2
+
+
+def pedersen_fidelity_iso(x_sub_iso, goal_sub_iso):
+    """Pedersen subspace fidelity from iso-vecs of the subspace blocks:
+    (tr(M^dag M) + |tr M|^2) / (m (m + 1)), M = U_goal^dag U_sub, with
+    tr(M^dag M) = ||U_sub||_F^2 (the goal's block is unitary)."""
+    m = int(round(np.sqrt(x_sub_iso.shape[-1] // 2)))
+    t1 = torch.sum(x_sub_iso ** 2, dim=-1)
+    re, im = iso_vec_inner(goal_sub_iso, x_sub_iso)
+    return (t1 + re ** 2 + im ** 2) / (m * (m + 1))
+
+
+def pedersen_fidelity_iso_bounded(x_sub_iso, goal_sub_iso, x_full_iso):
+    """`pedersen_fidelity_iso` scaled by n_full / ||U_full||_F^2: equal on
+    the unitary manifold and bounded by n_full / n_sub off it (the NLP
+    objective of an embedded goal)."""
+    n_full = int(round(np.sqrt(x_full_iso.shape[-1] // 2)))
+    nrm2 = torch.clamp(torch.sum(x_full_iso ** 2, dim=-1), min=1e-12)
+    return pedersen_fidelity_iso(x_sub_iso, goal_sub_iso) * n_full / nrm2
 
 
 def unitary_fidelity_iso_bounded(x_iso, goal_iso):
@@ -156,15 +198,14 @@ def unitary_rollout_fidelity(system, us, times, goal,
                              n_qubits=None, device=None):
     """Re-integrate the dynamics under a ZOH interpolation of the knot
     controls us [..., N, d] at times [..., N] and return the gate fidelity
-    of the final propagator [...] (the discretization-error check).
+    of the final propagator [...] (the discretization-error check); the
+    Pedersen subspace fidelity for an `EmbeddedOperator` goal.
     `dus` is not read by the "constant" interpolation."""
     if interpolation != "constant":
         raise NotImplementedError(
             f"interpolation={interpolation!r} (only 'constant' is ported)")
     if phases is not None or n_qubits is not None:
         raise NotImplementedError("free phases")
-    if not isinstance(goal, (np.ndarray, torch.Tensor)):
-        raise NotImplementedError("embedded (subspace) goals")
     if isinstance(us, torch.Tensor) and device is None:
         device = us.device
     device = resolve_device(device)
@@ -172,4 +213,9 @@ def unitary_rollout_fidelity(system, us, times, goal,
     times = torch.as_tensor(times, dtype=us.dtype).to(device)
     Us = unitary_rollout(system, ZeroOrderPulse(us, times), times,
                          method="zoh", n_substeps=n_substeps, device=device)
-    return unitary_fidelity(Us[..., -1, :, :], goal)
+    U_final = Us[..., -1, :, :]
+    if isinstance(goal, EmbeddedOperator):
+        sub = torch.as_tensor(np.asarray(goal.subspace), device=device)
+        return pedersen_fidelity(U_final[..., sub[:, None], sub[None, :]],
+                                 goal.unembed())
+    return unitary_fidelity(U_final, goal)

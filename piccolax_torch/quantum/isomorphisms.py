@@ -7,9 +7,11 @@
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 
-__all__ = ["operator_to_iso_vec", "iso", "G"]
+__all__ = ["operator_to_iso_vec", "iso", "G", "operator_subspace_iso_indices"]
 
 
 def operator_to_iso_vec(U):
@@ -32,3 +34,21 @@ def iso(Hm):
 def G(Hm):
     """Iso generator of -iH: G(H) = iso(-iH) (real 2n x 2n)."""
     return iso(-1j * np.asarray(Hm))
+
+
+@lru_cache(maxsize=None)
+def _operator_subspace_iso_indices(n: int, subspace: tuple) -> np.ndarray:
+    s = np.asarray(subspace)
+    m = len(s)
+    idx = np.empty(2 * m * m, dtype=np.int64)
+    for jj, col in enumerate(s):
+        for ii, row in enumerate(s):
+            idx[2 * m * jj + ii] = 2 * n * col + row            # Re
+            idx[2 * m * jj + m + ii] = 2 * n * col + n + row    # Im
+    return idx
+
+
+def operator_subspace_iso_indices(n: int, subspace) -> np.ndarray:
+    """iso-vec indices such that x[idx] is the iso-vec of U[s, s]
+    (an operator iso-vec of dimension len(s))."""
+    return _operator_subspace_iso_indices(n, tuple(int(i) for i in subspace))

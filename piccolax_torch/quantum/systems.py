@@ -94,6 +94,10 @@ class RealGeneratorSystem:
     """Solver-side system: the real iso generator of every term.
 
     G(u) = G_drift + sum_d u[d] G_d over any leading batch axes of u.
+    G_drift is [w, w], or [B, w, w] for a batch of problems that differ
+    in their drift (a robustness ensemble): its leading axis is then the
+    first axis of u, and it broadcasts over u's other leading axes (the
+    knots, line-search candidates). The drives are shared.
     """
 
     def __init__(self, G_drift, G_drives, levels: int):
@@ -108,6 +112,10 @@ class RealGeneratorSystem:
                                    self.levels)
 
     def G(self, u):
-        """u [..., n_drives] -> [..., 2n, 2n]."""
-        return self.G_drift + torch.einsum("...d,dij->...ij", u,
-                                           self.G_drives)
+        """u [..., n_drives] -> [..., 2n, 2n]; with a batched drift u is
+        [B, ..., n_drives]."""
+        drift = self.G_drift
+        if drift.dim() == 3:
+            drift = drift.reshape(drift.shape[0], *([1] * (u.dim() - 2)),
+                                  *drift.shape[1:])
+        return drift + torch.einsum("...d,dij->...ij", u, self.G_drives)

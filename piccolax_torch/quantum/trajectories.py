@@ -14,6 +14,7 @@ from .._device import resolve_device
 from ..trajectory import Trajectory
 from . import dynamics as dyn
 from . import isomorphisms as iso
+from .operators import EmbeddedOperator
 from .pulses import ZeroOrderPulse
 
 __all__ = ["UnitaryTrajectory", "discretize", "extract_pulse"]
@@ -22,7 +23,9 @@ __all__ = ["UnitaryTrajectory", "discretize", "extract_pulse"]
 class UnitaryTrajectory:
     """Gate synthesis trajectory: system, pulse, goal, and the rollout at
     the save times computed at construction on `device` (the card unless
-    the caller passes "cpu")."""
+    the caller passes "cpu"). An `EmbeddedOperator` goal keeps its
+    full-space matrix in `goal` and its subspace in `subspace`; the
+    fidelity is then the Pedersen fidelity of the subspace block."""
 
     state_name = "U"
 
@@ -30,13 +33,16 @@ class UnitaryTrajectory:
                  method=None, device=None):
         if not isinstance(pulse, ZeroOrderPulse):
             raise NotImplementedError("only ZeroOrderPulse is ported")
-        if not isinstance(goal, np.ndarray):
-            raise NotImplementedError("embedded (subspace) goals")
         self.device = resolve_device(device)
         self.system = system
         self.pulse = pulse
-        self.goal = np.asarray(goal, dtype=np.complex128)
-        self.subspace = None
+        if isinstance(goal, EmbeddedOperator):
+            self.goal = goal.operator
+            self.subspace = goal.subspace
+            self.subsystem_levels = goal.subsystem_levels
+        else:
+            self.goal = np.asarray(goal, dtype=np.complex128)
+            self.subspace = self.subsystem_levels = None
         self.times = np.asarray(pulse.knot_times() if times is None else times)
         self.Us = dyn.unitary_rollout(system, pulse, self.times, method=method,
                                       n_substeps=n_substeps, device=self.device)
@@ -45,9 +51,20 @@ class UnitaryTrajectory:
     def drive_name(self) -> str:
         return self.pulse.drive_name
 
+    @property
+    def embedded_goal(self):
+        if self.subspace is None:
+            return None
+        return EmbeddedOperator(
+            self.goal[np.ix_(self.subspace, self.subspace)],
+            self.subspace, self.subsystem_levels)
+
     def fidelity(self, phases=None, n_qubits=None):
         if phases is not None or n_qubits is not None:
             raise NotImplementedError("free phases")
+        if self.subspace is not None:
+            sub = np.ix_(self.subspace, self.subspace)
+            return dyn.pedersen_fidelity(self.Us[-1][sub], self.goal[sub])
         return dyn.unitary_fidelity(self.Us[-1], self.goal)
 
     def rollout(self, pulse=None, n_substeps: int = 1, method=None,
@@ -55,7 +72,8 @@ class UnitaryTrajectory:
         """Re-integrate (optionally with a new pulse) -> fresh trajectory,
         on `device` (default: this trajectory's)."""
         pulse = pulse or self.pulse
-        return UnitaryTrajectory(self.system, pulse, self.goal,
+        goal = self.embedded_goal if self.subspace is not None else self.goal
+        return UnitaryTrajectory(self.system, pulse, goal,
                                  times=pulse.knot_times(), n_substeps=n_substeps,
                                  method=method, device=device or self.device)
 
@@ -111,7 +129,15 @@ def discretize(qtraj, N_or_times=None, *, dt_bounds=None, state_bound=1.0,
     if geodesic:
         span = max(float(times[-1] - times[0]), 1e-30)
         s = (times - times[0]) / span
-        siso = iso.operator_to_iso_vec(_unitary_geodesic(qtraj.goal, s))
+        U_goal = qtraj.goal
+        if qtraj.subspace is not None:
+            # an embedded goal is singular on the leakage complement: the
+            # geodesic of the subspace block, identity on the complement
+            comp = np.setdiff1d(np.arange(U_goal.shape[0]),
+                                np.asarray(qtraj.subspace))
+            U_goal = U_goal.copy()
+            U_goal[comp, comp] = 1.0
+        siso = iso.operator_to_iso_vec(_unitary_geodesic(U_goal, s))
     else:
         siso = qtraj.state_iso(times)
     sname = qtraj.state_name

@@ -34,8 +34,8 @@ from ..parallel.sharded_kkt import (check_partitions, knot_condensed_factor,
                                     knot_condensed_solve)
 from .kkt import (condensed_factor, condensed_solve, psd_clamp, qd_factor,
                   qd_solve)
-from .nlp import (CollocationNLP, nlp_constraint_residuals, nlp_total_cost,
-                  params_to)
+from .nlp import (CollocationNLP, batched_leaves, nlp_constraint_residuals,
+                  nlp_total_cost, params_to)
 
 __all__ = ["IPMOptions", "IPMState", "solve_nlp"]
 
@@ -185,13 +185,18 @@ def _check_options(o: IPMOptions):
 def _setup(nlp: CollocationNLP, params, Z0, g0, options: IPMOptions,
            mesh=None, resume_from=None):
     """Build (initial state, iteration body) for a batch Z0 [B, N, dz];
-    mesh is the knot partition count of kkt_backend "knot"."""
+    mesh is the knot partition count of kkt_backend "knot". A params leaf
+    with a leading batch axis (solver/nlp.py) must have B entries."""
     o = options
     if resume_from is not None:
         raise NotImplementedError("resume_from")
     if nlp.dg or (g0 is not None and g0.shape[-1]):
         raise NotImplementedError("globals (dg > 0)")
     B, N, dz = Z0.shape
+    for name, b in batched_leaves(params):
+        if b != B:
+            raise ValueError(f"params leaf {name} has a batch of {b}, "
+                             f"Z0 a batch of {B}")
     m = nlp.m
     dtype, dev = Z0.dtype, Z0.device
     kw = dict(dtype=dtype, device=dev)
@@ -531,7 +536,9 @@ def solve_nlp(nlp: CollocationNLP, params, Z0, g0=None,
     """Solve the collocation NLP for a batch of starting points Z0
     [B, N, dz] (or one [N, dz]) in the dtype of Z0, on `device` (the card
     unless the caller passes "cpu"). nlp and params are moved to that
-    device and dtype. Returns the final IPMState.
+    device and dtype; params shared by the batch, or with a leading axis
+    of B on any leaf for problems that differ in their data
+    (`parallel.mesh.batch_solve`). Returns the final IPMState.
 
     mesh: for kkt_backend "knot", the number P of partitions the knot axis
     is cut into on the one card (piccolax's mesh.shape[knot_axis]); N

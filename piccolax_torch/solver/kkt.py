@@ -316,7 +316,10 @@ def condense_cr_factor(Xi, C, Rdiag, Cnext):
     launch per half level with a thread block (or warp) per row of every
     problem: 2 log2(Np) + 2 kernel launches in one call
     (csrc/condensed_cr.cu). Xi [B, N, dz, dz] are the knot factors of K1;
-    returns cr."""
+    returns cr in the dtype of Xi.
+
+    The levels run in float64 for a float32 problem too, whose factor is
+    rounded to float32 once (csrc/condensed_cr.cu says why)."""
     if not _cuda_or_cpu(Xi, "condense_cr_factor"):
         return condense_cr_factor_plain(Xi, C, Rdiag, Cnext)
     B, N, m, dz = _check_kkt_shapes(C, Cnext, "condense_cr_factor")
@@ -325,7 +328,7 @@ def condense_cr_factor(Xi, C, Rdiag, Cnext):
     Np = _pow2_pad(N)
     lib = _kernels.load("condensed_cr")
     cr = torch.empty(B, 3, Np, m, m, dtype=Xi.dtype, device=Xi.device)
-    ws = torch.empty(B * lib.px_cr_factor_ws(N, Np, m, dz), dtype=Xi.dtype,
+    ws = torch.empty(B * lib.px_cr_factor_ws(N, Np, m, dz), dtype=torch.float64,
                      device=Xi.device)
     rc = lib.px_cr_factor(_kernels.is_f64(Xi), Xi.data_ptr(), C.data_ptr(),
                           Rdiag.data_ptr(), Cnext.data_ptr(), cr.data_ptr(),

@@ -6,9 +6,12 @@
                              are parameters with values params["pin_val"])
 
 Z is [..., N, dz]. `params` holds the solver view of the system, the goal
-iso-vecs, the frozen components (dt) and the pin values. The dynamics
-rows are affine in z_{k+1}. This slice has no stage equalities (me = 0)
-and no globals (dg = 0).
+iso-vecs, the frozen components (dt) and the pin values. Any of them may
+carry a leading batch axis of B for a batch Z [B, ..., N, dz] of problems
+that differ in their data (piccolax vmaps over such params): a batched
+leaf's first axis is Z's first and it broadcasts over Z's other leading
+axes. The dynamics rows are affine in z_{k+1}. This slice has no stage
+equalities (me = 0) and no globals (dg = 0).
 """
 
 from __future__ import annotations
@@ -18,7 +21,33 @@ import torch
 from torch.func import grad, hessian, vmap
 
 __all__ = ["CollocationNLP", "nlp_total_cost", "nlp_constraint_residuals",
-           "params_to"]
+           "params_to", "batch_view", "batched_leaves"]
+
+# the rank of each params leaf of one problem; a batched leaf has one more
+_RANKS = {"goal": 1, "frozen": 2, "pin_val": 2}
+
+
+def batch_view(v, rank: int, n_lead: int):
+    """A params leaf of `rank` dims as it is, or a batched one [B, ...]
+    viewed to broadcast against n_lead leading axes, the first of which
+    is the batch."""
+    if v.dim() == rank:
+        return v
+    return v.reshape(v.shape[0], *([1] * (n_lead - 1)), *v.shape[1:])
+
+
+def batched_leaves(params):
+    """(name, leading size) of every params leaf that carries a batch axis."""
+    out = []
+    for key, rank in _RANKS.items():
+        v = params.get(key)
+        leaves = v.items() if isinstance(v, dict) else [(key, v)]
+        out += [(f"{key}/{n}" if isinstance(v, dict) else n, a.shape[0])
+                for n, a in leaves if a is not None and a.dim() > rank]
+    system = params.get("system")
+    if system is not None and system.G_drift.dim() > 2:
+        out.append(("system/G_drift", system.G_drift.shape[0]))
+    return out
 
 
 class CollocationNLP:
@@ -59,7 +88,8 @@ class CollocationNLP:
         def get(name):
             if name in sl:
                 return Zk[..., sl[name]]
-            return params["frozen"][name][knots]
+            v = batch_view(params["frozen"][name], 2, Zk.dim() - 2)
+            return v[..., knots, :]
         return get
 
     def _knot_cost(self, z, term, params, k):
@@ -88,16 +118,20 @@ class CollocationNLP:
 
     def cost_derivatives(self, Z, params):
         """(gradient [..., N, dz], Hessian [..., N, dz, dz]) of the stage
-        costs, by torch.func over the knots (objectives reach no kernel)."""
+        costs, by torch.func over the knots (objectives reach no kernel).
+        Each of the flattened knots carries its own problem's goal."""
         lead = Z.shape[:-2]
         term = self._terminal(Z).expand(*lead, self.N).reshape(-1)
         Zf = Z.reshape(-1, self.dz)
+        goal = {n: batch_view(v, 1, len(lead) + 1)
+                .expand(*lead, self.N, v.shape[-1]).reshape(-1, v.shape[-1])
+                for n, v in params["goal"].items()}
 
-        def f(z, t):
-            return self._knot_cost(z, t, params, slice(None))
+        def f(z, t, goal):
+            return self._knot_cost(z, t, {**params, "goal": goal}, slice(None))
 
-        g = vmap(grad(f))(Zf, term).reshape(Z.shape)
-        H = vmap(hessian(f))(Zf, term).reshape(*Z.shape, self.dz)
+        g = vmap(grad(f))(Zf, term, goal).reshape(Z.shape)
+        H = vmap(hessian(f))(Zf, term, goal).reshape(*Z.shape, self.dz)
         return g, H
 
     def dynamics_derivatives(self, Z, params, lam_d):

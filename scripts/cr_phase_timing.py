@@ -8,7 +8,8 @@ memory, then runs the timed entry points (px_cr_factor and px_knot_factor
 take the stamps' buffer after the stream under the switch) at each shape
 and prints the factor's time (CUDA events over 5 launches without
 stamps), its largest relative difference from the plain version (by
-factor plane) and where the time goes. The factor is a sequence of
+factor plane) and where the time goes. K3's float32 shapes run the
+factor the paths run: float64 levels, the factor stored in float32. The factor is a sequence of
 launches, a thread block a row (common.cuh): for each launch, kind and
 level, the time from its first thread block's start to the next launch's
 (%globaltimer) and the clock64() cycles of that block's phases; then the
@@ -248,7 +249,8 @@ def run_k3(lib, B, N, dz, m, dtype, baseline):
     Xi = kkt.chol_inv_factor_plain(P).contiguous()   # (solve_triangular's is column-major)
     Np = kkt._pow2_pad(N)
     cr = torch.empty(B, 3, Np, m, m, dtype=P.dtype, device="cuda")
-    ws = torch.empty(B * lib.px_cr_factor_ws(N, Np, m, dz), dtype=P.dtype, device="cuda")
+    ws = torch.empty(B * lib.px_cr_factor_ws(N, Np, m, dz), dtype=torch.float64,
+                     device="cuda")  # float64 elements (a float32-workspace build needs half)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     st = torch.full((STAMPS,), -1, dtype=torch.int64, device="cuda")
 

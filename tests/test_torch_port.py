@@ -15,6 +15,7 @@ torch.set_num_threads(1)
 
 from piccolax import benchmarks as jbm  # noqa: E402
 from piccolax import verification as jver  # noqa: E402
+from piccolax.solver.nlp import nlp_total_cost as jcost  # noqa: E402
 import piccolax_torch as pt  # noqa: E402
 from piccolax_torch import verification as pver  # noqa: E402
 from piccolax_torch.control.objectives import QuadraticRegularizer  # noqa: E402
@@ -221,10 +222,31 @@ def test_unported_solve_arguments_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(free_phase=True), dict(leakage_cost=1.0), dict(leakage_indices=[1]),
+    dict(free_phase=True), dict(leakage_value=0.01),
     dict(options=object()), dict(extra_constraints=[object()]),
     dict(global_bounds={"x": (0, 1)}),
 ])
 def test_unported_template_options_raise(kw):
     with pytest.raises(NotImplementedError):
         pt.sx_gate_problem(N=N, T=T, device="cpu", **kw)
+
+
+def test_leakage_options_build_the_cost_of_jax():
+    """sx_gate_problem(leakage_indices=[1], leakage_cost=1.0): a leakage
+    cost on iso-vec entry 1 of every knot, the cost piccolax builds (1e-12
+    at a perturbed Z0); leakage_cost alone on a goal without a subspace
+    derives no indices and adds no term, as in piccolax."""
+    kw = dict(leakage_indices=[1], leakage_cost=1.0)
+    jnlp, jparams, jZ0, jg0, _ = jbm.sx_gate_problem(N=N, T=T, **kw).build()
+    prob = pt.sx_gate_problem(N=N, T=T, device="cpu", **kw)
+    nlp, params, Z0, _, _ = prob.build(device="cpu")
+    assert type(prob.objectives[-1]).__name__ == "LeakageObjective"
+    Z = np.asarray(jZ0) + 0.05 * np.random.default_rng(3).standard_normal(Z0.shape)
+    f_ref = float(jcost(jnlp, Z, jg0, jparams))
+    f = pt.solver.nlp_total_cost(nlp, torch.as_tensor(Z), None, params).item()
+    assert abs(f - f_ref) < 1e-12 * max(1.0, abs(f_ref))
+    nlp0 = pt.sx_gate_problem(N=N, T=T, device="cpu").build(device="cpu")[0]
+    assert f > pt.solver.nlp_total_cost(nlp0, torch.as_tensor(Z), None, params).item()
+    alone = pt.sx_gate_problem(N=N, T=T, device="cpu", leakage_cost=1.0)
+    assert [type(o).__name__ for o in alone.objectives] == \
+        [type(o).__name__ for o in jbm.sx_gate_problem(N=N, T=T, leakage_cost=1.0).objectives]
