@@ -62,14 +62,33 @@ fatal on failure:
     embedded goal, Pedersen subspace fidelity, leakage cost) at B = 64 in
     float32 with bench.py's options (hess_mode "abs"), gated by >= 62/64
     converged, the float64 DOP853 subspace fidelity F > 0.99 on all and
-    mean_F >= 0.999.
+    mean_F >= 0.999;
+15. config 5: the Lindblad density transfer |0><0| -> |1><1| on a
+    3-level transmon with decay (N = 50, T = 10, gamma = 0.01; compact
+    density iso, K4 on the 9 x 9 compact Lindbladian) at B = 64 in
+    float32 with bench.py's options, gated by 64/64 converged and the
+    float64 DOP853 population of |1>: F > 0.95 on all, mean_F >= 0.970;
+    then the 64 solved pulses in one batched density_rollout (K5 on
+    [64, 196, 9, 9] complex128) within 1e-7 of DOP853 on every problem,
+    and prob.solve(max_iter=150, tol=1e-7) at B = 1 in float64 (solve,
+    sync, the trajectory's rollout and fidelity): F > 0.95, within 1e-7
+    of DOP853.
 
 Phase 3 also checks K1-K4 at config 4's shapes ([1024, 50, 14, 14], m =
 12, float32) and K1-K3 at config 2's ([64, 100, 24, 24], m = 22, float32,
-K2 in mode "abs"), K4 at config 2's 6 x 6 residual sweep, the derivative
-form at both paths' (w, d) on their own systems (config 4: one drift a
-problem), K5 on the construction rollouts of the quickstart, config 4 and
-config 2 ([99, 2, 2], [49, 2, 2], [99, 3, 3]), K1-K3 at config 3's shapes
+K2 in mode "abs") and at config 5's ([64, 50, 15, 15], m = 13, float32),
+K4 at config 2's 6 x 6 residual sweep and at config 5's 9 x 9 one (the
+compact Lindbladian, non-normal, s = 2), the derivative form at the three
+paths' (w, d) on their own systems (config 4: one drift a problem; config
+5: w = 9, d = 2, the Lindbladian's drive directions), K5 on the
+construction rollouts of the quickstart, config 4, config 2 and config 5
+([99, 2, 2], [49, 2, 2], [99, 3, 3], [196, 9, 9]: h S of the Lindblad
+superoperator) and config 5's batched rollout ([64, 196, 9, 9], 64
+perturbed seed pulses), and on non-normal inputs at n = 4, 9 and 16 (Lindblad
+superoperators of random H and jump operators over every squaring count,
+decays into a sink at the counts' edges; both types), each with the
+kernel's and the plain version's error against matrix_exp in complex128
+printed; K1-K3 at config 3's shapes
 ([16, 200, 44, 44], m = 40
 in float32; B = 1 in float64), K4 and K6 (Pade order 7) at the CNOT's 8 x 8
 residual sweeps (both dtypes) and K9
@@ -100,7 +119,7 @@ paths print K4's and K6's launches by block width and form (residual
 sweeps, derivative launches), and fail if the value form ran on a 12- or
 24-wide augmentation.
 
-Each of 4-14 resets every launch counter just before it and reads them
+Each of 4-15 resets every launch counter just before it and reads them
 just after, and fails if a kernel of its path was not launched or a
 kernel of another path was (no fallback). Prints
 the {"kernels": [...]} record, then as the last line {"ok": true,
@@ -136,6 +155,9 @@ KNOT_PARTS = (4, 8)
 # bench.py:287-289's
 C2_N, C2_T, C2_B = 100, 20.0, 64
 C4_B, C4_N, C4_T = 1024, 50, 10.0
+# config 5: bench.py's config-5 options (bench.py:314-334); the density
+# rollout's substeps (DensityTrajectory's default)
+C5_N, C5_T, C5_B, C5_GAMMA, C5_SUBSTEPS = 50, 10.0, 64, 0.01, 4
 
 
 def _check(ok, message):
@@ -365,10 +387,14 @@ def check_kernels(B, N, dz, m, dtype, record, reps=20, clamp=None, k4=True,
 
 def _sweep_problem(config, **kw):
     """(problem, N, T) of a path whose residual sweep phase 3 checks: the
-    CNOT of config 3 or the qutrit X of config 2, on the card."""
+    CNOT of config 3, the qutrit X of config 2 or the Lindblad transfer of
+    config 5, on the card."""
     import piccolax_torch as pt
     if config == "config3":
         return pt.cnot_problem(N=C3_N, T=C3_T, device="cuda", **kw), C3_N, C3_T
+    if config == "config5":
+        return pt.lindblad_problem(N=C5_N, T=C5_T, gamma=C5_GAMMA, device="cuda",
+                                   **kw), C5_N, C5_T
     return pt.qutrit_x_problem(N=C2_N, T=C2_T, device="cuda", **kw), C2_N, C2_T
 
 
@@ -376,7 +402,8 @@ def check_expm_sweep(config, B, cand_ls, dtype, record, reps=5, pade_order=None)
     """Phase 3, K4 (or K6 with pade_order) at a path's line-search
     residual sweep [B * cand_ls, N-1, w, w] (cand_ls = directions x
     ls_iters; the CNOT's 8 x 8 for config 3, the qutrit's 6 x 6 for config
-    2), at its integrator's order and squarings, against the plain version
+    2, the 9 x 9 compact Lindbladian for config 5: the integrator's own
+    generator), at its integrator's order and squarings, against the plain version
     at the kernel's tolerance (K4: 1e-9 relative in float64, 1e-5 in
     float32; K6: 1e-12 and 1e-5). (The derivative launches:
     check_expm_derivatives.)"""
@@ -388,7 +415,7 @@ def check_expm_sweep(config, B, cand_ls, dtype, record, reps=5, pade_order=None)
     f64 = dtype == "float64"
     es = 8 if f64 else 4
     rng = np.random.default_rng((61 if f64 else 62) + (0 if pade_order is None else 2)
-                                + (0 if config == "config3" else 4))
+                                + {"config3": 0, "config2": 4, "config5": 8}[config])
     kw = {} if pade_order is None else {"pade_order": pade_order}
     prob, N, T = _sweep_problem(config, **kw)
     intg = prob.integrators[0]
@@ -407,9 +434,9 @@ def check_expm_sweep(config, B, cand_ls, dtype, record, reps=5, pade_order=None)
     u = torch.as_tensor(rng.uniform(-bound_u, bound_u,
                                     (B * cand_ls, N - 1, sysv.n_drives)),
                         dtype=dt_, device=dev)
-    X = (dt * sysv.G(u)).contiguous()
+    X = (dt * intg.generator(sysv, u)).contiguous()
     n = X.shape[-1]
-    what = "CNOT" if config == "config3" else "qutrit"
+    what = {"config3": "CNOT", "config2": "qutrit", "config5": "Lindblad"}[config]
     err, rel = _rel_err(fn(X, order, sq), plain(X, order, sq))
     _check(rel < tol, f"{name} {what} residual sweep {tuple(X.shape)} ({dtype}) "
            f"rel err {rel:.3e}")
@@ -424,12 +451,15 @@ def check_expm_sweep(config, B, cand_ls, dtype, record, reps=5, pade_order=None)
            variant=f"{config}_{dtype}_{n}x{n}")
 
 
-def _path_directions(sysv, u, dt, dt_free):
+def _path_directions(intg, sysv, u, dt, dt_free):
     """A = dt G(u) [..., w, w] and the integrator's directions E [..., d, w, w]:
-    dt G_k for each drive and, with a free timestep, G(u)."""
+    dt G_k for each drive and, with a free timestep, G(u); G the
+    integrator's generator (the real iso generator, or the compact
+    Lindbladian)."""
     import torch
-    G = sysv.G(u)
-    E = (dt * sysv.G_drives).expand(*G.shape[:-2], *sysv.G_drives.shape)
+    G = intg.generator(sysv, u)
+    drives = intg.drive_generators(sysv)
+    E = (dt * drives).expand(*G.shape[:-2], *drives.shape)
     if dt_free:
         E = torch.cat([E, G[..., None, :, :]], dim=-3)
     return (dt * G).contiguous(), E.contiguous()
@@ -498,7 +528,8 @@ DERIV_PATHS = [("config1", 256, 50, "float32", "taylor"),
                ("config3", C3_B, C3_N, "float32", "taylor"),
                ("cnot", 1, C3_N, "float64", "taylor"),
                ("config4", C4_B, C4_N, "float32", "taylor"),
-               ("config2", C2_B, C2_N, "float32", "taylor")]
+               ("config2", C2_B, C2_N, "float32", "taylor"),
+               ("config5", C5_B, C5_N, "float32", "taylor")]
 # directions' pairs: (w, d) up to the width cap, single and several tiles a
 # knot (4 x 12, 8 x 8 and 16 x 5 split their pairs over thread blocks)
 DERIV_SWEEP = [(1, 1), (2, 3), (3, 2), (5, 4), (6, 3), (7, 2), (9, 2), (10, 5), (12, 3),
@@ -508,7 +539,7 @@ DERIV_SWEEP = [(1, 1), (2, 3), (3, 2), (5, 4), (6, 3), (7, 2), (9, 2), (10, 5), 
 def _path_problem(label, N, order):
     """The problem of a derivative path: its system, its integrator, its
     timestep and its solver view (config 4: the ensemble's, one drift a
-    problem)."""
+    problem; config 5: the open system's, with the compact Lindbladian)."""
     import piccolax_torch as pt
     if label.startswith("config1"):
         prob = pt.sx_gate_problem(N=N, T=10.0, device="cuda")
@@ -521,6 +552,9 @@ def _path_problem(label, N, order):
     elif label.startswith("config2"):
         prob = pt.qutrit_x_problem(N=N, T=C2_T, device="cuda")
         dt = C2_T / (N - 1)
+    elif label.startswith("config5"):
+        prob = pt.lindblad_problem(N=N, T=C5_T, gamma=C5_GAMMA, device="cuda")
+        dt = C5_T / (N - 1)
     elif label.startswith("quickstart"):
         sysq, _, qcp = _quickstart_problem(pade_order=order)
         return sysq, qcp.integrators[0], 0.1, sysq.solver_view()
@@ -557,7 +591,7 @@ def check_expm_derivatives(record, reps=5):
         u = torch.as_tensor(rng.uniform(bounds[:, 0], bounds[:, 1],
                                         (B, N - 1, len(bounds))), dtype=dt_, device=dev)
         dt_free = label.startswith("quickstart")
-        A, E = _path_directions(sysv, u, dt, dt_free)
+        A, E = _path_directions(intg, sysv, u, dt, dt_free)
         w, d = A.shape[-1], E.shape[-3]
         tol = 1e-9 if order == "taylor" else 1e-12
         err = _check_derivative_form(A, E, order, sq, label, tol)
@@ -683,9 +717,30 @@ def _construction_rollout_inputs(case, cdt):
     seed pulse on the knots, one ZOH step an interval), as
     quantum/dynamics.py hands them to expm: the quickstart's [99, 2, 2],
     config 4's SX seed [49, 2, 2] (config 1's too) and config 2's qutrit
-    seed [99, 3, 3]."""
+    seed [99, 3, 3]; for config 5 h S(u), S the complex 9 x 9 Lindblad
+    superoperator of its DensityTrajectory's seed pulse at each of the
+    4 substeps' midpoints, [196, 9, 9] (non-normal), and ("c5b") of 64
+    pulses, the seed perturbed by 0.005 N(0, 1) as phase 15's starting
+    points, as its batched rollout hands them to expm, [64, 196, 9, 9]."""
     import torch
     import piccolax_torch as pt
+    if case in ("c5", "c5b"):
+        from piccolax_torch.quantum import dynamics as dyn
+        base = pt.TransmonSystem(levels=3, omega=4.0, delta=0.2, drive_bounds=0.2)
+        sysl = pt.OpenQuantumSystem(base.H_drift, base.H_drives, 0.2, dissipators=[
+            pt.LinearDissipator(pt.quantum.operators.annihilate(3), C5_GAMMA)])
+        rng = np.random.default_rng(0)
+        us = 0.01 * rng.standard_normal((C5_N, 2))
+        times = np.linspace(0, C5_T, C5_N)
+        if case == "c5b":
+            us = us + 0.005 * rng.standard_normal((C5_B, C5_N, 2))
+            times = np.tile(times, (C5_B, 1))
+        rt = torch.float64 if cdt is np.complex128 else torch.float32
+        times = torch.as_tensor(times, dtype=rt, device="cuda")
+        _, hS = dyn._lindblad_generators(
+            sysl, pt.ZeroOrderPulse(torch.as_tensor(us, dtype=rt, device="cuda"), times),
+            times, C5_SUBSTEPS, "cuda")
+        return hS
     if case == "qs":
         sysq = pt.QuantumSystem(0.5 * pt.PAULIS["Z"], [pt.PAULIS["X"], pt.PAULIS["Y"]],
                                 1.0)
@@ -709,32 +764,48 @@ def check_expm_pade13(record, reps=20):
     on [256 * 990, 2, 2] (the batched quickstart's rollout size) and on
     [16 * 199, n, n] for n = 1, 3, 4, 5, 8, 9 and 16 (every segment class
     of the kernel at both ends), complex128 and complex64, with
-    every squaring count and norms within two ulps of each count's edge,
-    and on the batched quickstart rollout's own inputs [256, 990, 2, 2]
-    (s = 0) and on the construction rollouts of the quickstart, config 4
-    and config 2 ([99, 2, 2], [49, 2, 2], [99, 3, 3]; s = 0, wrapper
-    time: host-bound). Each matrix holds to tol relative for s <= 6 and tol *
-    2^(s-6) above (s squarings multiply a rounding difference by up to
-    2^s; the kernel solves for F directly where the plain version runs
-    piccolax's Newton-Schulz steps); the per-matrix s must agree. The
-    bound counts the kernel's body (_pade13_flops), the earlier 23 + s
-    products' bound printed beside it in brackets."""
+    every squaring count and norms within two ulps of each count's edge;
+    on non-normal inputs (`lindblad_by_squarings`: Lindblad superoperators
+    of random H and jump operators, and decays into a sink at the edges)
+    at [16 * 199, n, n], n = 4, 9 and 16, over the same squaring counts,
+    with both the kernel's and the plain version's error against
+    torch.linalg.matrix_exp in complex128 printed beside them;
+    on the batched quickstart rollout's own inputs [256, 990, 2, 2]
+    (s = 0), on the construction rollouts of the quickstart, config 4,
+    config 2 and config 5 ([99, 2, 2], [49, 2, 2], [99, 3, 3], [196, 9, 9];
+    s = 0, wrapper time: host-bound) and on config 5's batched rollout
+    [64, 196, 9, 9] (64 perturbed seed pulses). Each matrix holds to tol
+    relative for s <= 6 and tol * 2^(s-6) above (s squarings multiply a
+    rounding difference by up to 2^s; the kernel solves for F directly where
+    the plain version runs piccolax's Newton-Schulz steps); the per-matrix s
+    must agree. The bound counts the kernel's body (_pade13_flops), the
+    earlier 23 + s products' bound printed beside it in brackets."""
     import torch
     from piccolax_torch.ops import expm as ex
 
     rng = np.random.default_rng(5)
     main = None
     sub = {}
-    own = {"qs256": 2, "qs": 2, "c4": 2, "c2": 3}      # the paths' own inputs
+    own = {"qs256": 2, "qs": 2, "c4": 2, "c2": 3, "c5": 9, "c5b": 9}   # the paths' own inputs
+    nonnormal = {"nn4": 4, "nn9": 9, "nn16": 16}
     cases = [(2, QS_B * (QS_N - 1) * 10), *((n, 16 * 199) for n in (1, 3, 4, 5, 8, 9, 16)),
+             *((k, 16 * 199) for k in nonnormal),
              ("qs256", QS_B * (QS_N - 1) * 10), ("qs", QS_N - 1), ("c4", C4_N - 1),
-             ("c2", C2_N - 1)]
+             ("c2", C2_N - 1), ("c5", (C5_N - 1) * C5_SUBSTEPS),
+             ("c5b", C5_B * (C5_N - 1) * C5_SUBSTEPS)]
     for case, M in cases:
         for cdt, tol in ((np.complex128, 1e-12), (np.complex64, 1e-4)):
-            n = own.get(case, case)
-            if case == "qs256":
+            n = own.get(case, nonnormal.get(case, case))
+            if case in nonnormal:
+                A = torch.as_tensor(ex.lindblad_by_squarings(M, n, rng, cdt), device="cuda")
+                key = f"non-normal [{M},{n},{n}] {cdt.__name__}"
+            elif case == "qs256":
                 A = _qs256_rollout_inputs(cdt)
                 key = f"qs256 rollout [{QS_B},{(QS_N - 1) * 10},2,2] {cdt.__name__}"
+            elif case == "c5b":
+                A = _construction_rollout_inputs(case, cdt)
+                key = (f"c5 batched rollout [{C5_B},{(C5_N - 1) * C5_SUBSTEPS},9,9] "
+                       f"{cdt.__name__}")
             elif case in own:
                 A = _construction_rollout_inputs(case, cdt)
                 key = f"{case} construction rollout [{M},{n},{n}] {cdt.__name__}"
@@ -752,8 +823,19 @@ def check_expm_pade13(record, reps=20):
             d = (got - ref).abs().amax(dim=(-2, -1))
             rel = d / ref.abs().amax(dim=(-2, -1))
             lim = tol * torch.pow(2.0, torch.clamp(s - 6, min=0).double())
-            _check(bool((rel <= lim).all()), f"expm {key} "
-                   f"rel err {rel.max().item():.3e} above tol * 2^(s-6)")
+            ok = bool((rel <= lim).all())
+            if case in nonnormal or case in ("c5", "c5b") or not ok:
+                # both against the library in complex128, to tell which is off
+                lib = torch.linalg.matrix_exp(A.to(torch.complex128))
+                scale = lib.abs().amax(dim=(-2, -1))
+                e_k, e_p = ((x.to(torch.complex128) - lib).abs().amax(dim=(-2, -1)) / scale
+                            for x in (got, ref))
+                print(f"expm_pade13 {key}: against matrix_exp in complex128, kernel "
+                      f"rel err {e_k.max().item():.3e}, plain {e_p.max().item():.3e} "
+                      f"(worst matrix: s={int(s.flatten()[torch.argmax(rel)])}); kernel/plain "
+                      f"rel diff over the rule's limit at most "
+                      f"{(rel / lim).max().item():.3f}", flush=True)
+            _check(ok, f"expm {key} rel err {rel.max().item():.3e} above tol * 2^(s-6)")
             real = "float64" if cdt is np.complex128 else "float32"
             es = 16 if cdt is np.complex128 else 8
             ms = _time_ms(lambda: ex.expm(A), reps)
@@ -2203,16 +2285,16 @@ def _c2_options(**kw):
                             **kw})
 
 
-def _c2_start(prob, layout, Z0):
-    """B = 64 starting points: Z0 with its pulse columns perturbed by
-    0.005 N(0, 1) (seed 0), as bench.py's config-2 run."""
+def _perturbed_start(layout, Z0, B):
+    """B float32 starting points: Z0 with its pulse columns perturbed by
+    0.005 N(0, 1) (seed 0), as bench.py's _perturb_u (configs 2 and 5)."""
     import torch
     u_sl = layout.slices["u"]
     rng = np.random.default_rng(0)
     Zb = np.broadcast_to(Z0.cpu().numpy().astype(np.float32)[None],
-                         (C2_B, C2_N, layout.z_dim)).copy()
+                         (B, *Z0.shape)).copy()
     Zb[:, :, u_sl] += 0.005 * rng.standard_normal(
-        (C2_B, C2_N, u_sl.stop - u_sl.start)).astype(np.float32)
+        (B, Z0.shape[0], u_sl.stop - u_sl.start)).astype(np.float32)
     return torch.as_tensor(Zb, device="cuda")
 
 
@@ -2234,14 +2316,14 @@ def config2():
 
     prob = pt.qutrit_x_problem(N=C2_N, T=C2_T, device="cuda")
     nlp, params, Z0, _, layout = prob.build(device="cuda")
-    pt.solve_nlp(nlp, params, _c2_start(prob, layout, Z0), device="cuda",
+    pt.solve_nlp(nlp, params, _perturbed_start(layout, Z0, C2_B), device="cuda",
                  options=_c2_options(max_iter=2))
     _kernels.reset_launch_counts()
     _sync()
     t0 = time.perf_counter()
     prob = pt.qutrit_x_problem(N=C2_N, T=C2_T, device="cuda")
     nlp, params, Z0, _, layout = prob.build(device="cuda")
-    Zb = _c2_start(prob, layout, Z0)
+    Zb = _perturbed_start(layout, Z0, C2_B)
     _sync()
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2281,6 +2363,132 @@ def config2():
            f"{int((Fs > 0.99).sum())}/{C2_B} only")
     _check(Fs.mean() >= 0.999, f"config-2: mean_F {Fs.mean():.6f} < 0.999")
     return launches
+
+
+def _c5_options(**kw):
+    import piccolax_torch as pt
+    return pt.IPMOptions(**{**dict(max_iter=60, tol=5e-3, constr_viol_tol=5e-3,
+                                   ls_iters=6, clamp_iters=15), **kw})
+
+
+def _c5_dop853(sysq, us, times):
+    """rho_final [B, 3, 3] of config 5's master equation under ZOH pulses
+    us [B, N, 2] in float64 DOP853 (the jump operator sqrt(gamma) a)."""
+    from piccolax_torch.verification import batched_density_dop853
+    rho0 = np.diag([1.0, 0.0, 0.0]).astype(complex)
+    return batched_density_dop853(sysq.H_drift, np.stack(sysq.H_drives),
+                                  [d.operator() for d in sysq.dissipators], us, times,
+                                  rho0)
+
+
+C5_KERNELS = C4_C2_KERNELS
+C5_FORBIDDEN = ["knot_factor", "knot_solve", *OFF_PATH]
+
+
+def config5():
+    """Phase 15: config 5, the Lindblad density transfer |0><0| -> |1><1|
+    on a 3-level transmon with decay sqrt(0.01) a (N = 50, T = 10; compact
+    density iso, K4 on the 9 x 9 compact Lindbladian), B = 64 in float32
+    with bench.py's options from Z0 with perturbed pulses; gated as
+    bench.py gates it, by 64/64 converged, the float64 DOP853 population
+    of |1> F > 0.95 on all and mean_F >= 0.970 (piccolax: 0.97034). Then
+    one batched density_rollout of the 64 solved pulses (K5 on
+    [64, 196, 9, 9] complex128) within 1e-7 of DOP853 on every problem,
+    and the entry point at B = 1 in float64: prob.solve(max_iter=150,
+    tol=1e-7), its synced trajectory's F > 0.95 and within 1e-7 of DOP853.
+    The counted run includes the construction (K5's rollout of the seed
+    pulse), the batched rollout and the B = 1 solve; a 2-iteration solve
+    of another build warms up first."""
+    import torch
+    import piccolax_torch as pt
+    from piccolax_torch import _kernels
+    from piccolax_torch.verification import compact_iso_to_density_np
+
+    def problem():
+        return pt.lindblad_problem(N=C5_N, T=C5_T, gamma=C5_GAMMA, device="cuda")
+
+    prob = problem()
+    nlp, params, Z0, _, layout = prob.build(device="cuda")
+    pt.solve_nlp(nlp, params, _perturbed_start(layout, Z0, C5_B), device="cuda",
+                 options=_c5_options(max_iter=2))
+    _kernels.reset_launch_counts()
+    _sync()
+    t0 = time.perf_counter()
+    prob = problem()
+    nlp, params, Z0, _, layout = prob.build(device="cuda")
+    Zb = _perturbed_start(layout, Z0, C5_B)
+    _sync()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = pt.solve_nlp(nlp, params, Zb, options=_c5_options(), device="cuda")
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches("config-5", C5_KERNELS, C5_FORBIDDEN)
+    its = st.it.cpu().numpy()
+    iters = int(its.max())
+    print(f"config-5: B={C5_B} N={C5_N} f32, kkt_backend cr, hess_mode clamp, build "
+          f"{t_build:.3f} s, {iters} iterations (max; mean {its.mean():.2f}, min "
+          f"{its.min()}), solve {seconds:.3f} s, {C5_B / seconds:.3f} solves/s; per IPM "
+          f"iteration: " + json.dumps({k: round(v / iters, 2) for k, v in launches.items()}),
+          flush=True)
+    Z = st.Z.double().cpu().numpy()
+    _check(np.all(np.isfinite(Z)) and Z.shape == (C5_B, C5_N, layout.z_dim),
+           f"config-5 solution not finite or of shape {Z.shape}")
+    t1 = time.perf_counter()
+    sysq = prob.qtraj.system
+    times = np.linspace(0, C5_T, C5_N)
+    us = Z[:, :, layout.slices["u"]]
+    rho64 = _c5_dop853(sysq, us, times)
+    Fs = rho64[:, 1, 1].real                     # the population of |1>
+    rho_rep = compact_iso_to_density_np(Z[:, -1, layout.slices["rho"]])
+    dF = np.abs(rho_rep[:, 1, 1].real - Fs)
+    n_conv = int(st.converged.sum().item())
+    print(f"config-5 quality: converged={n_conv}/{C5_B}, f64-DOP853 mean_F="
+          f"{Fs.mean():.6f} (piccolax 0.97034), min_F={Fs.min():.6f}, frac_F>0.95="
+          f"{np.mean(Fs > 0.95):.4f}, mean|dF|={dF.mean():.2e} (piccolax 3.0e-02), "
+          f"max|dF|={dF.max():.2e} (piccolax 3.8e-02), dop853 "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    _check(n_conv == C5_B, f"config-5: converged {n_conv}/{C5_B}")
+    _check(bool(np.all(Fs > 0.95)), f"config-5: F > 0.95 on "
+           f"{int((Fs > 0.95).sum())}/{C5_B} only")
+    _check(Fs.mean() >= 0.970, f"config-5: mean_F {Fs.mean():.6f} < 0.970")
+
+    # every solved pulse rolled out in one batched density_rollout (one K5
+    # launch on [64, 196, 9, 9] complex128)
+    times_b = np.tile(times, (C5_B, 1))
+    _sync()
+    t1 = time.perf_counter()
+    rhos = pt.density_rollout(sysq, pt.ZeroOrderPulse(torch.as_tensor(us, device="cuda"),
+                                                      times_b),
+                              times_b, np.diag([1.0, 0.0, 0.0]), C5_SUBSTEPS, device="cuda")
+    F_roll = rhos[:, -1, 1, 1].real.cpu().numpy()
+    t_roll = time.perf_counter() - t1
+    d_roll = np.abs(F_roll - Fs)
+    print(f"config-5 batched rollout: {tuple(rhos.shape)} {rhos.dtype} in {t_roll:.4f} s, "
+          f"max |F_roll - F_DOP853| = {d_roll.max():.3e}", flush=True)
+    _check(bool(np.all(d_roll <= 1e-7)), f"config-5 rollout: |F_roll - F_DOP853| "
+           f"{d_roll.max():.3e} > 1e-7")
+
+    # the entry point at B = 1 in float64: solve, sync (extract, roll out), fidelity
+    prob1 = problem()
+    _sync()
+    t1 = time.perf_counter()
+    prob1.solve(max_iter=150, tol=1e-7, verbose=False, device="cuda")
+    F1 = prob1.fidelity().item()
+    t_solve1 = time.perf_counter() - t1
+    r = prob1.result
+    pulse = prob1.qtraj.pulse
+    rho1 = _c5_dop853(sysq, np.asarray(pulse.values, np.float64)[None],
+                      np.asarray(pulse.times, np.float64))
+    d1 = abs(F1 - rho1[0, 1, 1].real)
+    print(f"config-5 prob.solve (B=1, f64): {int(r.it)} iterations (piccolax on the "
+          f"CPU: 150), kkt={float(r.kkt_err):.3e} (6.19e-02), converged={prob1.converged}, "
+          f"F={F1:.6f} (0.985976), |F - F_DOP853|={d1:.3e}, {t_solve1:.3f} s with the "
+          f"sync", flush=True)
+    _check(F1 > 0.95, f"config-5 prob.solve: F {F1:.6f} <= 0.95")
+    _check(d1 <= 1e-7, f"config-5 prob.solve: |F - F_DOP853| {d1:.3e} > 1e-7")
+    return _read_launches("config-5 (with the batched rollout and the B = 1 solve)",
+                          C5_KERNELS, C5_FORBIDDEN)
 
 
 def profile(name, fn, iters=None):
@@ -2386,6 +2594,8 @@ def main():
                   variant="config4_float32")
     check_kernels(C2_B, C2_N, 24, 22, "float32", record, reps=5, clamp=(20, 3e-3),
                   k4=False, variant="config2_float32", k2_mode="abs")
+    check_kernels(C5_B, C5_N, 15, 13, "float32", record, reps=5, k4=False,
+                  variant="config5_float32")
     check_kernels(C3_B, C3_N, 44, 40, "float32", record, reps=5, clamp=(20, 3e-3),
                   k4=False, variant="config3_float32")
     check_kernels(1, C3_N, 44, 40, "float64", record, reps=5, k4=False,
@@ -2398,6 +2608,8 @@ def main():
     check_expm_sweep("config3", 1, 3 * 8, "float64", record, pade_order=7)
     # config 2: B = 64, f32, no Newton candidate (2 directions x 8 steps)
     check_expm_sweep("config2", C2_B, 2 * 8, "float32", record)
+    # config 5: B = 64, f32, no Newton candidate (2 directions x 6 steps)
+    check_expm_sweep("config5", C5_B, 2 * 6, "float32", record)
     check_expm_derivatives(record)
     check_knot(1, C3_N, 44, 40, "float64", record)
     check_knot(C3_B, C3_N, 44, 40, "float32", record)
@@ -2418,6 +2630,7 @@ def main():
     paths["cnot_qd"] = cnot_qd(run_k)
     paths["config4"] = config4()
     paths["config2"] = config2()
+    paths["config5"] = config5()
     if args.profile:
         profile("config 1 solve (B=256, f32)",
                 lambda: pt.solve_nlp(*run1[:3], options=run1[3], device="cuda"))

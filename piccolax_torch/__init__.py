@@ -24,31 +24,34 @@ torch.set_float32_matmul_precision("highest")
 __version__ = "0.1.0"
 
 from . import control, parallel, quantum, solver  # noqa: E402
-from .benchmarks import (cnot_problem, qutrit_x_problem,  # noqa: E402
-                         robustness_ensemble, sx_gate_problem)
+from .benchmarks import (cnot_problem, lindblad_problem,  # noqa: E402
+                         qutrit_x_problem, robustness_ensemble, sx_gate_problem)
 from .control import QuantumControlProblem, SmoothPulseProblem, build_nlp  # noqa: E402
 from .convert import nlp_from_numpy  # noqa: E402
 from .ops.expm import expm  # noqa: E402
 from .parallel.mesh import batch_solve  # noqa: E402
-from .quantum.dynamics import (unitary_fidelity, unitary_rollout,  # noqa: E402
+from .quantum.dynamics import (density_fidelity, density_rollout,  # noqa: E402
+                               unitary_fidelity, unitary_rollout,
                                unitary_rollout_fidelity)
 from .quantum.gates import GATES, PAULIS  # noqa: E402
 from .quantum.operators import EmbeddedOperator  # noqa: E402
 from .quantum.pulses import ZeroOrderPulse  # noqa: E402
-from .quantum.systems import QuantumSystem  # noqa: E402
+from .quantum.systems import (LinearDissipator, OpenQuantumSystem,  # noqa: E402
+                              QuantumSystem)
 from .quantum.templates import TransmonSystem  # noqa: E402
-from .quantum.trajectories import (UnitaryTrajectory, discretize,  # noqa: E402
-                                   extract_pulse)
+from .quantum.trajectories import (DensityTrajectory, UnitaryTrajectory,  # noqa: E402
+                                   discretize, extract_pulse)
 from .solver import IPMOptions, IPMState, solve_nlp  # noqa: E402
 from .trajectory import KnotLayout, Trajectory  # noqa: E402
 
 __all__ = [
-    "GATES", "PAULIS", "EmbeddedOperator", "IPMOptions", "IPMState",
-    "KnotLayout", "QuantumControlProblem", "QuantumSystem",
-    "SmoothPulseProblem", "Trajectory", "TransmonSystem",
-    "UnitaryTrajectory", "ZeroOrderPulse", "batch_solve", "build_nlp",
-    "discretize", "expm", "extract_pulse", "nlp_from_numpy", "solve_nlp",
-    "cnot_problem", "qutrit_x_problem", "robustness_ensemble",
-    "sx_gate_problem", "unitary_fidelity", "unitary_rollout",
-    "unitary_rollout_fidelity",
+    "GATES", "PAULIS", "DensityTrajectory", "EmbeddedOperator", "IPMOptions",
+    "IPMState", "KnotLayout", "LinearDissipator", "OpenQuantumSystem",
+    "QuantumControlProblem", "QuantumSystem", "SmoothPulseProblem",
+    "Trajectory", "TransmonSystem", "UnitaryTrajectory", "ZeroOrderPulse",
+    "batch_solve", "build_nlp", "discretize", "expm", "extract_pulse",
+    "nlp_from_numpy", "solve_nlp", "cnot_problem", "lindblad_problem",
+    "qutrit_x_problem", "robustness_ensemble", "sx_gate_problem",
+    "density_fidelity", "density_rollout", "unitary_fidelity",
+    "unitary_rollout", "unitary_rollout_fidelity",
 ]

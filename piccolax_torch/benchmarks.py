@@ -1,9 +1,11 @@
-"""BASELINE configurations 1-4 of `piccolax.benchmarks`: the single-qubit
-SX gate (2 drives, N = 50 knots over T = 10), the X gate on the 0-1
-subspace of a 3-level transmon with leakage suppression (N = 100 over
-T = 20), the two-qubit CNOT on coupled transmons (4 drives, N = 200 over
-T = 50), and the robustness ensemble: SX problems that differ in a
-detuning of their drift, solved as one batch."""
+"""The five BASELINE configurations of `piccolax.benchmarks`: the
+single-qubit SX gate (2 drives, N = 50 knots over T = 10), the X gate on
+the 0-1 subspace of a 3-level transmon with leakage suppression (N = 100
+over T = 20), the two-qubit CNOT on coupled transmons (4 drives, N = 200
+over T = 50), the robustness ensemble: SX problems that differ in a
+detuning of their drift, solved as one batch, and the Lindblad density
+transfer |0><0| -> |1><1| on a 3-level transmon with decay (N = 50 over
+T = 10)."""
 
 from __future__ import annotations
 
@@ -16,12 +18,13 @@ from .quantum.gates import GATES, PAULIS
 from .quantum.operators import (EmbeddedOperator, annihilate,
                                 get_iso_vec_leakage_indices, lift_operator)
 from .quantum.pulses import ZeroOrderPulse
-from .quantum.systems import QuantumSystem, RealGeneratorSystem
+from .quantum.systems import (LinearDissipator, OpenQuantumSystem, QuantumSystem,
+                              RealGeneratorSystem)
 from .quantum.templates import TransmonSystem
-from .quantum.trajectories import UnitaryTrajectory
+from .quantum.trajectories import DensityTrajectory, UnitaryTrajectory
 
 __all__ = ["sx_gate_problem", "qutrit_x_problem", "cnot_problem",
-           "robustness_ensemble"]
+           "robustness_ensemble", "lindblad_problem"]
 
 
 def _seed_pulse(N, T, n_drives, seed=0, scale=0.01):
@@ -113,3 +116,23 @@ def robustness_ensemble(n_samples: int = 1024, N: int = 50, T: float = 10.0,
         "pin_val": params["pin_val"].expand(n_samples, *params["pin_val"].shape),
     }
     return nlp, params_batch, Z0.expand(n_samples, *Z0.shape), layout
+
+
+def lindblad_problem(N: int = 50, T: float = 10.0, gamma: float = 0.01,
+                     seed: int = 0, device=None, **kw):
+    """Config 5: the density transfer |0><0| -> |1><1| on a 3-level
+    transmon (config 2's Hamiltonian, drives bounded by 0.2) with decay
+    sqrt(gamma) a, collocated on the compact density iso. The seed pulse is
+    rolled out on `device` (the card unless the caller passes "cpu")."""
+    base = TransmonSystem(levels=3, omega=4.0, delta=0.2, drive_bounds=0.2)
+    sys = OpenQuantumSystem(base.H_drift, base.H_drives, 0.2,
+                            dissipators=[LinearDissipator(annihilate(3), gamma)])
+    rho0 = np.zeros((3, 3), dtype=complex)
+    rho0[0, 0] = 1.0
+    rho_goal = np.zeros((3, 3), dtype=complex)
+    rho_goal[1, 1] = 1.0
+    pulse, _ = _seed_pulse(N, T, 2, seed)
+    qtraj = DensityTrajectory(sys, pulse, rho0, rho_goal, device=device)
+    kw.setdefault("Q", 100.0)
+    kw.setdefault("R", 1e-2)
+    return SmoothPulseProblem(qtraj, N, **kw)

@@ -4,12 +4,14 @@ derivatives), batched over leading axes.
 Rows are affine in z_{k+1}, as the condensed KKT requires:
 
 - `BilinearUnitaryIntegrator`: U_{k+1} - expm(dt_k G(u_k)) U_k on operator
-  iso-vecs. The propagator and its exact first and second derivatives in
-  u (and in dt_k when the timestep is a decision variable) come from ONE
-  call of the fixed expm kernel (K4 for order "taylor", K6 for a Pade
-  order) on block-triangular augmentations
-  (`ops.expm.expm_fixed_derivatives`): the derivatives of the same
-  approximant that piccolax differentiates with jacfwd/hessian.
+  iso-vecs; `BilinearDensityIntegrator`: x_{k+1} - expm(dt_k A(u_k)) x_k
+  on compact density isos, A the compact Lindbladian. For both the
+  propagator and its exact first and second derivatives in u (and in dt_k
+  when the timestep is a decision variable) come from ONE call of the
+  fixed expm kernel (K4 for order "taylor", K6 for a Pade order) on
+  block-triangular augmentations (`ops.expm.expm_fixed_derivatives`):
+  the derivatives of the same approximant that piccolax differentiates
+  with jacfwd/hessian.
 - `DerivativeIntegrator`: u_{k+1} - u_k - dt_k du_k (bilinear, no kernel).
 - `TimeStepsEqualIntegrator`: dt_{k+1} - dt_k (linear, no kernel).
 
@@ -27,7 +29,8 @@ import torch
 from ..ops.expm import (TAYLOR_THETA, expm_fixed, expm_fixed_derivatives,
                         pade_radius)
 
-__all__ = ["BilinearUnitaryIntegrator", "DerivativeIntegrator",
+__all__ = ["BilinearUnitaryIntegrator", "BilinearDensityIntegrator",
+           "DerivativeIntegrator",
            "TimeStepsEqualIntegrator", "choose_squarings"]
 
 
@@ -58,8 +61,86 @@ def _bound_dt_G_norm(system, traj) -> float:
     return norm * dt_max
 
 
-class BilinearUnitaryIntegrator:
-    """Rows: U_{k+1} - expm(dt_k G(u_k)) U_k in operator iso-vec form."""
+class _BilinearIntegrator:
+    """Rows x_{k+1} - Phi_k x_k for every row x of the states (rows of
+    width w), Phi_k = expm(dt_k A(u_k)) with A(u) affine in u. A subclass
+    gives the generator A(u) (`generator`, [..., w, w]), its drive
+    directions dA/du_i (`drive_generators`, [nd, w, w]), the states' rows
+    and their columns in the layout; the Jacobian and Hessian assembly is
+    shared."""
+
+    def residual(self, get, getp, params):
+        """[..., K, dim] for knots k with z_k from get, z_{k+1} from getp."""
+        system = params["system"]
+        dt = get(self.time_name)[..., 0]
+        Phi = expm_fixed((dt[..., None, None] * self.generator(system, get(self.drive_name))
+                          ).contiguous(), self.order, self.squarings)
+        R = self._rows(getp) - self._rows(get) @ Phi.mT
+        return R.reshape(*R.shape[:-2], self.dim)
+
+    def derivatives(self, get, getp, params, lam, layout):
+        """Jacobian blocks and the Hessian of lam . rows in z_k.
+
+        Returns (Jself [..., K, dim, dz], Jnext [..., K, dim, dz],
+        H [..., K, dz, dz]); lam [..., K, dim].
+
+        dt A(u) is bilinear in (u, dt): the directions are
+        E_{u_i} = dt A_i and, for a free timestep, E_dt = A(u), and the
+        chain rule adds D Phi[d2(dt A) / ddt du_i] = D Phi[A_i] =
+        D Phi[E_{u_i}] / dt to the (dt, u_i) second derivative.
+        """
+        system = params["system"]
+        nd = system.n_drives
+        dt_free = self.time_name in layout.slices
+        dt = get(self.time_name)[..., 0][..., None, None]
+        G = self.generator(system, get(self.drive_name))       # [..., K, w, w]
+        A = dt * G
+        E = dt[..., None, :, :] * self.drive_generators(system)  # [..., K, nd, w, w]
+        if dt_free:
+            E = torch.cat([E, G[..., None, :, :]], dim=-3)
+        lead = A.shape[:-2]
+        nv = E.shape[-3]
+        Phi, dPhi, D2 = expm_fixed_derivatives(A, E, self.order, self.squarings)
+
+        Xc = self._rows(get)                                    # [..., K, r, w]
+        r = Xc.shape[-2]
+        lam_c = lam.reshape(*lam.shape[:-1], r, -1)
+        dz = layout.z_dim
+        sX = self._state_cols(layout)
+        su = layout.slices[self.drive_name]
+        cols = list(range(su.start, su.stop))
+        if dt_free:
+            cols += list(range(layout.slices[self.time_name].start,
+                               layout.slices[self.time_name].stop))
+        cols = torch.tensor(cols, device=A.device)
+        Jself = A.new_zeros(*lead, self.dim, dz)
+        eye_r = torch.eye(r, dtype=A.dtype, device=A.device)
+        kron = eye_r[:, None, :, None] * Phi[..., None, :, None, :]
+        Jself[..., sX] = -kron.reshape(*lead, self.dim, self.dim)
+        dX = Xc[..., None, :, :] @ dPhi.mT                      # [..., K, nv, r, w]
+        Jself[..., cols] = -dX.reshape(*lead, nv, self.dim).mT
+        Jnext = A.new_zeros(*lead, self.dim, dz)
+        Jnext[..., sX] = torch.eye(self.dim, dtype=A.dtype, device=A.device)
+
+        H = A.new_zeros(*lead, dz, dz)
+        Hnl = -torch.einsum("...ca,...ijab,...cb->...ij", lam_c, D2, Xc)
+        if dt_free:
+            # (dt, u_i): lam . D Phi[A_i] X_k with D Phi[A_i] = dPhi[i] / dt,
+            # dt > 0 as discretize requires of the lower bound
+            cross = -torch.einsum("...ca,...iab,...cb->...i", lam_c,
+                                  dPhi[..., :nd, :, :], Xc) / dt[..., 0]
+            Hnl[..., :nd, nd] = Hnl[..., :nd, nd] + cross
+            Hnl[..., nd, :nd] = Hnl[..., nd, :nd] + cross
+        HnX = -(lam_c[..., None, :, :] @ dPhi).reshape(*lead, nv, self.dim)
+        H[..., cols[:, None], cols[None, :]] = Hnl
+        H[..., cols, sX] = HnX
+        H[..., sX, cols] = HnX.mT
+        return Jself, Jnext, H
+
+
+class BilinearUnitaryIntegrator(_BilinearIntegrator):
+    """Rows: U_{k+1} - expm(dt_k G(u_k)) U_k in operator iso-vec form: the
+    n columns of U are rows of width 2n."""
 
     def __init__(self, state_name: str, drive_name: str, levels: int,
                  order="taylor", squarings: int = 2, time_name: str = "dt"):
@@ -71,80 +152,54 @@ class BilinearUnitaryIntegrator:
         self.levels = levels
         self.dim = 2 * levels * levels
 
-    def _cols(self, x):
-        """operator iso-vec [..., 2n^2] -> rows = columns [..., n, 2n]."""
-        n = self.levels
-        return x.reshape(*x.shape[:-1], n, 2 * n)
+    def generator(self, system, u):
+        return system.G(u)
 
-    def residual(self, get, getp, params):
-        """[..., K, dim] for knots k with z_k from get, z_{k+1} from getp."""
-        system = params["system"]
-        dt = get(self.time_name)[..., 0]
-        Phi = expm_fixed((dt[..., None, None] * system.G(get(self.drive_name))
-                          ).contiguous(), self.order, self.squarings)
-        Xc = self._cols(get(self.state_name))
-        Xn = self._cols(getp(self.state_name))
-        R = Xn - Xc @ Phi.mT
-        return R.reshape(*R.shape[:-2], self.dim)
+    def drive_generators(self, system):
+        return system.G_drives
 
-    def derivatives(self, get, getp, params, lam, layout):
-        """Jacobian blocks and the Hessian of lam . rows in z_k.
+    def _rows(self, get):
+        """operator iso-vec [..., 2n^2] -> its columns [..., n, 2n]."""
+        x = get(self.state_name)
+        return x.reshape(*x.shape[:-1], self.levels, 2 * self.levels)
 
-        Returns (Jself [..., K, dim, dz], Jnext [..., K, dim, dz],
-        H [..., K, dz, dz]); lam [..., K, dim].
+    def _state_cols(self, layout):
+        return layout.slices[self.state_name]
 
-        A = dt G(u) is bilinear in (u, dt): the directions are
-        E_{u_i} = dt G_i and, for a free timestep, E_dt = G(u), and the
-        chain rule adds D Phi[d2A / ddt du_i] = D Phi[G_i] = D Phi[E_{u_i}] / dt
-        to the (dt, u_i) second derivative.
-        """
-        system = params["system"]
-        n, nd = self.levels, system.n_drives
-        w = 2 * n
-        dt_free = self.time_name in layout.slices
-        dt = get(self.time_name)[..., 0][..., None, None]
-        G = system.G(get(self.drive_name))                      # [..., K, w, w]
-        A = dt * G
-        E = dt[..., None, :, :] * system.G_drives               # [..., K, nd, w, w]
-        if dt_free:
-            E = torch.cat([E, G[..., None, :, :]], dim=-3)
-        lead = A.shape[:-2]
-        nv = E.shape[-3]
-        Phi, dPhi, D2 = expm_fixed_derivatives(A, E, self.order, self.squarings)
 
-        Xc = self._cols(get(self.state_name))                   # [..., K, n, w]
-        lam_c = self._cols(lam)
-        dz = layout.z_dim
-        sU = layout.slices[self.state_name]
-        su = layout.slices[self.drive_name]
-        cols = list(range(su.start, su.stop))
-        if dt_free:
-            cols += list(range(layout.slices[self.time_name].start,
-                               layout.slices[self.time_name].stop))
-        cols = torch.tensor(cols, device=A.device)
-        Jself = A.new_zeros(*lead, self.dim, dz)
-        eye_n = torch.eye(n, dtype=A.dtype, device=A.device)
-        kron = eye_n[:, None, :, None] * Phi[..., None, :, None, :]
-        Jself[..., sU] = -kron.reshape(*lead, self.dim, self.dim)
-        dX = Xc[..., None, :, :] @ dPhi.mT                      # [..., K, nv, n, w]
-        Jself[..., cols] = -dX.reshape(*lead, nv, self.dim).mT
-        Jnext = A.new_zeros(*lead, self.dim, dz)
-        Jnext[..., sU] = torch.eye(self.dim, dtype=A.dtype, device=A.device)
+class BilinearDensityIntegrator(_BilinearIntegrator):
+    """Rows: x_{k+1} - expm(dt_k A(u_k)) x_k for each compact density iso
+    x [n^2] of `state_names` (one row each, sharing the propagator), A the
+    real n^2 x n^2 compact Lindbladian (`compact_lindbladian`)."""
 
-        H = A.new_zeros(*lead, dz, dz)
-        Hnl = -torch.einsum("...ca,...ijab,...cb->...ij", lam_c, D2, Xc)
-        if dt_free:
-            # (dt, u_i): lam . D Phi[G_i] X_k with D Phi[G_i] = dPhi[i] / dt,
-            # dt > 0 as discretize requires of the lower bound
-            cross = -torch.einsum("...ca,...iab,...cb->...i", lam_c,
-                                  dPhi[..., :nd, :, :], Xc) / dt[..., 0]
-            Hnl[..., :nd, nd] = Hnl[..., :nd, nd] + cross
-            Hnl[..., nd, :nd] = Hnl[..., nd, :nd] + cross
-        HnU = -(lam_c[..., None, :, :] @ dPhi).reshape(*lead, nv, self.dim)
-        H[..., cols[:, None], cols[None, :]] = Hnl
-        H[..., cols, sU] = HnU
-        H[..., sU, cols] = HnU.mT
-        return Jself, Jnext, H
+    def __init__(self, state_names, drive_name: str, levels: int,
+                 order="taylor", squarings: int = 2, time_name: str = "dt"):
+        self.state_names = (state_names,) if isinstance(state_names, str) \
+            else tuple(state_names)
+        self.drive_name = drive_name
+        self.time_name = time_name
+        self.order = order
+        self.squarings = squarings
+        self.levels = levels
+        self.dim = levels * levels * len(self.state_names)
+
+    def generator(self, system, u):
+        return system.compact_lindbladian(u)
+
+    def drive_generators(self, system):
+        return system.lind_drives
+
+    def _rows(self, get):
+        return torch.stack([get(nm) for nm in self.state_names], dim=-2)
+
+    def _state_cols(self, layout):
+        """The states' columns, one slice: the states lie side by side in
+        the layout, in the order of state_names."""
+        sl = [layout.slices[nm] for nm in self.state_names]
+        if any(a.stop != b.start for a, b in zip(sl[:-1], sl[1:])):
+            raise ValueError(f"BilinearDensityIntegrator: states {self.state_names} "
+                             "are not adjacent in the layout")
+        return slice(sl[0].start, sl[-1].stop)
 
 
 class DerivativeIntegrator:

@@ -15,8 +15,8 @@ from ..quantum import dynamics as dyn
 from ..quantum import isomorphisms as iso
 from ..solver.nlp import batch_view
 
-__all__ = ["UnitaryInfidelityObjective", "QuadraticRegularizer",
-           "LeakageObjective"]
+__all__ = ["UnitaryInfidelityObjective", "DensityInfidelityObjective",
+           "QuadraticRegularizer", "LeakageObjective"]
 
 
 class UnitaryInfidelityObjective:
@@ -45,6 +45,21 @@ class UnitaryInfidelityObjective:
     def knot_cost(self, get, term, params):
         F = self.fidelity(get(self.state_name), params)
         return term * (self.Q * (1.0 - F))
+
+
+class DensityInfidelityObjective:
+    """Q * (1 - F(x_{N-1}, goal)) on the compact density iso, F the plain
+    dot `dynamics.density_fidelity_iso` (tr(rho rho_goal) for a diagonal
+    goal)."""
+
+    def __init__(self, state_name: str, Q: float = 100.0):
+        self.state_name = state_name
+        self.Q = Q
+
+    def knot_cost(self, get, term, params):
+        x = get(self.state_name)
+        goal = batch_view(params["goal"][self.state_name], 1, x.dim() - 1)
+        return term * (self.Q * (1.0 - dyn.density_fidelity_iso(x, goal)))
 
 
 class QuadraticRegularizer:

@@ -20,7 +20,7 @@ import torch
 
 from .._device import resolve_device
 from ..quantum import isomorphisms as iso
-from ..quantum.trajectories import extract_pulse
+from ..quantum.trajectories import DensityTrajectory, extract_pulse
 from ..solver.ipm import IPMOptions, solve_nlp
 from ..solver.nlp import CollocationNLP, params_to
 from ..trajectory import KnotLayout, Trajectory
@@ -128,9 +128,12 @@ class QuantumControlProblem:
         params.setdefault("system", self.qtraj.system)
         params.setdefault("goal", {self.qtraj.state_name: self.qtraj.goal})
         params["system"] = params["system"].solver_view()
-        params["goal"] = {nm: iso.operator_to_iso_vec(
-            np.asarray(v, dtype=np.complex128))
-            for nm, v in params["goal"].items()}
+        # the goal as the state is encoded: a compact density iso, or an
+        # operator iso-vec
+        to_iso = iso.density_to_compact_iso if isinstance(self.qtraj, DensityTrajectory) \
+            else iso.operator_to_iso_vec
+        params["goal"] = {nm: to_iso(np.asarray(v, dtype=np.complex128))
+                          for nm, v in params["goal"].items()}
         return build_nlp(self.traj, self.objectives, self.integrators,
                          params=params, device=device, dtype=dtype)
 

@@ -1,12 +1,13 @@
-"""Problem templates: `SmoothPulseProblem`, on the unitary-gate path of
-`piccolax.control.templates` (ZOH pulse, chained derivatives u -> du ->
-ddu, bilinear unitary dynamics, terminal infidelity, quadratic
-regularizers, optionally free and equal timesteps and a leakage cost)."""
+"""Problem templates: `SmoothPulseProblem`, on the unitary-gate and the
+density (Lindblad) paths of `piccolax.control.templates` (ZOH pulse,
+chained derivatives u -> du -> ddu, bilinear unitary or compact-density
+dynamics, terminal infidelity, quadratic regularizers, optionally free
+and equal timesteps and a leakage cost)."""
 
 from __future__ import annotations
 
 from ..quantum.operators import get_iso_vec_leakage_indices
-from ..quantum.trajectories import UnitaryTrajectory, discretize
+from ..quantum.trajectories import DensityTrajectory, UnitaryTrajectory, discretize
 from . import integrators as intg
 from . import objectives as obj
 from .problem import QuantumControlProblem
@@ -45,8 +46,9 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
     for what, asked in unported.items():
         if asked:
             raise NotImplementedError(f"SmoothPulseProblem: {what}")
-    if not isinstance(qtraj, UnitaryTrajectory):
-        raise NotImplementedError("only UnitaryTrajectory is ported")
+    if not isinstance(qtraj, (UnitaryTrajectory, DensityTrajectory)):
+        raise NotImplementedError("only UnitaryTrajectory and DensityTrajectory "
+                                  "are ported")
     leakage_cost = leakage_cost or 0.0
     if leakage_indices is None and leakage_cost and qtraj.subspace is not None:
         leakage_indices = get_iso_vec_leakage_indices(qtraj.subspace,
@@ -76,11 +78,17 @@ def SmoothPulseProblem(qtraj, N=None, *, Q: float = 100.0, R: float = 1e-2,
             "crawl. Increase the knot count N (smaller dt) or rescale units.",
             stacklevel=2)
     squarings = intg.choose_squarings(norm_bound, pade_order)
-    integrators = [intg.BilinearUnitaryIntegrator(
-        qtraj.state_name, dname, qtraj.system.levels, order=pade_order,
-        squarings=squarings)]
-    objectives = [obj.UnitaryInfidelityObjective(qtraj.state_name, Q=Q,
-                                                 subspace=qtraj.subspace)]
+    if isinstance(qtraj, DensityTrajectory):
+        integrators = [intg.BilinearDensityIntegrator(
+            (qtraj.state_name,), dname, qtraj.system.levels, order=pade_order,
+            squarings=squarings)]
+        objectives = [obj.DensityInfidelityObjective(qtraj.state_name, Q=Q)]
+    else:
+        integrators = [intg.BilinearUnitaryIntegrator(
+            qtraj.state_name, dname, qtraj.system.levels, order=pade_order,
+            squarings=squarings)]
+        objectives = [obj.UnitaryInfidelityObjective(qtraj.state_name, Q=Q,
+                                                     subspace=qtraj.subspace)]
     names = [dname, "d" + dname, "dd" + dname]
     d = traj.dims[dname]
     for a, b in zip(names[:-1], names[1:]):

@@ -519,6 +519,63 @@ def anti_hermitian_by_squarings(M: int, n: int, rng, dtype=np.complex128):
     return A
 
 
+def lindblad_by_squarings(M: int, n: int, rng, dtype=np.complex128):
+    """M non-normal matrices [M, n, n] (numpy, `dtype`, n = d^2 for d
+    levels) whose inf-norms give `expm` every squaring count 0..16 and the
+    edges between them, as `anti_hermitian_by_squarings` does for -iH.
+
+    The first M - 85 are h S, S the Lindblad superoperator of a random
+    Hamiltonian H and a random jump operator L on d levels,
+    -i (I (x) H - H^T (x) I) + `isomorphisms.dissipator`(L), in 18 equal blocks of norm 0.4, 0.95 * 2^(s - 1/2) for s = 1..16 and
+    1.5x past the cap. The last 85 have an exact norm of 0.95 * 2^k
+    (k = 0..16) and up to two ulps either side, in 2 x 2 blocks of a
+    decay into a sink, [[-a, 0], [c, 0]] with |c| <= a <= x and a = x in
+    the first (non-normal, and its exponential bounded), c real or
+    imaginary by turns, and for odd n an imaginary last diagonal entry: a
+    single entry a row, real or imaginary, keeps every implementation's
+    norm exact.
+    """
+    from ..quantum import isomorphisms as iso
+
+    d = int(round(np.sqrt(n)))
+    if d * d != n or n < 4:
+        raise ValueError(f"lindblad_by_squarings: n = d^2 >= 4 expected, got {n}")
+    rt = np.float64 if np.dtype(dtype) == np.complex128 else np.float32
+    ne = 17 * 5
+    md = M - ne
+    if md < 18:
+        raise ValueError(f"lindblad_by_squarings: M >= {ne + 18} expected")
+
+    X = rng.standard_normal((md, d, d)) + 1j * rng.standard_normal((md, d, d))
+    H = 0.5 * (X + np.conj(np.swapaxes(X, -1, -2)))
+    L = rng.standard_normal((md, d, d)) + 1j * rng.standard_normal((md, d, d))
+    S = -1j * iso.ad_vec(H) + iso.dissipator(L)
+    block = np.arange(md) * 18 // md
+    target = np.where(block == 17, 1.5 * 0.95 * 2.0 ** 16, 0.95 * 2.0 ** (block - 0.5))
+    target[block == 0] = 0.4
+    S *= (target / np.abs(S).sum(-1).max(-1))[:, None, None]
+    edge = []
+    for k in range(17):
+        x = rt(0.95) * rt(2.0 ** k)
+        for _ in range(2):
+            x = np.nextafter(x, rt(0))
+        for _ in range(5):
+            edge.append(x)
+            x = np.nextafter(x, rt(np.inf))
+    edge = np.asarray(edge, rt)
+    A = np.zeros((M, n, n), dtype)
+    A[:md] = S
+    a = (edge[:, None] * rng.uniform(0, 1, (ne, n // 2))).astype(rt)
+    a[:, 0] = edge
+    c = (a * rng.uniform(-1, 1, (ne, n // 2))).astype(rt)
+    j = np.arange(n // 2)
+    A[md:, 2 * j, 2 * j] = -a
+    A[md:, 2 * j + 1, 2 * j] = np.where(j % 2 == 1, 1j, 1.0) * c
+    if n % 2:
+        A[md:, n - 1, n - 1] = 1j * (edge * rng.uniform(-1, 1, ne)).astype(rt)
+    return A
+
+
 def expm_plain(A, max_squarings: int = 16):
     """Plain PyTorch version of K5, batched over leading axes."""
     s = pade13_squarings(A, max_squarings)

@@ -1,11 +1,13 @@
-"""Fidelities, and the zero-order-hold unitary rollout of
-`piccolax.quantum.dynamics`.
+"""Fidelities, and the zero-order-hold unitary and density (Lindblad)
+rollouts of `piccolax.quantum.dynamics`.
 
-The rollout runs on the device: one Pade-13 expm (kernel K5) per fine
+The rollouts run on the device: one Pade-13 expm (kernel K5) per fine
 interval, all intervals of all pulses in one launch, then a log-depth
-scan of small products. Every rollout function takes pulses with leading
-batch axes (values [..., K, d], times [..., K]): the port's written-out
-`vmap` over pulses.
+scan of small products. The density rollout takes the expm of the
+complex n^2 x n^2 Lindblad superoperator (non-normal: dissipation makes
+it so). Every rollout function takes pulses with leading batch axes
+(values [..., K, d], times [..., K]): the port's written-out `vmap` over
+pulses.
 """
 
 from __future__ import annotations
@@ -15,13 +17,16 @@ import torch
 
 from .._device import resolve_device
 from ..ops.expm import expm
+from . import isomorphisms as iso
 from .operators import EmbeddedOperator
 from .pulses import _SNAP_TOL, ZeroOrderPulse
 
-__all__ = ["unitary_fidelity", "pedersen_fidelity", "iso_vec_inner",
-           "unitary_fidelity_iso", "pedersen_fidelity_iso",
-           "unitary_fidelity_iso_bounded", "pedersen_fidelity_iso_bounded",
-           "step_propagators", "unitary_rollout", "unitary_rollout_fidelity"]
+__all__ = ["unitary_fidelity", "pedersen_fidelity", "density_fidelity",
+           "iso_vec_inner", "unitary_fidelity_iso", "pedersen_fidelity_iso",
+           "density_fidelity_iso", "unitary_fidelity_iso_bounded",
+           "pedersen_fidelity_iso_bounded", "step_propagators", "unitary_rollout",
+           "unitary_rollout_fidelity", "liouvillian", "lindblad_propagators",
+           "density_rollout"]
 
 
 def unitary_fidelity(U, U_goal, subspace=None):
@@ -53,6 +58,23 @@ def pedersen_fidelity(U_sub, U_goal_sub):
     t1 = torch.abs(torch.einsum("...ij,...ij->...", torch.conj(M), M))
     t2 = torch.abs(torch.einsum("...ii->...", M)) ** 2
     return (t1 + t2) / (n * (n + 1))
+
+
+def density_fidelity(rho, rho_goal):
+    """Trace fidelity tr(rho @ rho_goal) (real, batched over leading axes)
+    of a complex tensor rho; rho_goal may be an array, moved to rho's
+    device."""
+    rho = torch.as_tensor(rho)
+    rho_goal = torch.as_tensor(rho_goal).to(rho.device, rho.dtype)
+    return torch.einsum("...ij,...ji->...", rho, rho_goal).real
+
+
+def density_fidelity_iso(x_compact, goal_compact):
+    """The plain dot of two compact density isos, as piccolax computes it.
+    The compact iso carries no sqrt(2) on its off-diagonal entries, so
+    this is tr(rho rho_goal) only for a diagonal goal (piccolax's
+    docstring says the iso is sqrt(2)-scaled; its code does not scale)."""
+    return torch.sum(x_compact * goal_compact, dim=-1)
 
 
 def iso_vec_inner(x, y):
@@ -190,6 +212,56 @@ def unitary_rollout(system, pulse, times, method: str | None = None,
     U0 = torch.eye(n, dtype=props.dtype, device=props.device)
     Us = torch.cat([U0.expand(*cum.shape[:-3], 1, n, n), cum], dim=-3)
     return Us if n_substeps == 1 else Us[..., ::n_substeps, :, :]
+
+
+def liouvillian(system, u=None):
+    """Complex Lindblad superoperator S [..., n^2, n^2] with d vec(rho)/dt
+    = S vec(rho) (column-major vec) at controls u [..., n_drives]: the
+    commutator with H(u) and each dissipator of `system` (none for a
+    closed system), on u's device."""
+    Hm = system.H(u)
+    S = -1j * iso.ad_vec(Hm)
+    for d in getattr(system, "dissipators", ()):
+        S = S + torch.as_tensor(iso.dissipator(d.operator(u))).to(S)
+    return S
+
+
+def _lindblad_generators(system, pulse, times, n_substeps: int, device):
+    """(grid [..., M+1], h S(u(t_mid)) [..., M, n^2, n^2]): the inputs of
+    `lindblad_propagators`' expm, the controls sampled at each substep's
+    midpoint."""
+    values, ptimes = _pulse_tensors(pulse, resolve_device(device))
+    grid = _substep_grid(torch.as_tensor(times, dtype=ptimes.dtype).to(ptimes.device),
+                         n_substeps)
+    ta, tb = grid[..., :-1], grid[..., 1:]
+    u = _zoh_controls(values, ptimes, 0.5 * (ta + tb))
+    return grid, ((tb - ta)[..., None, None] * liouvillian(system, u)).contiguous()
+
+
+def lindblad_propagators(system, pulse, times, n_substeps: int = 1, device=None):
+    """Per-interval superoperator propagators expm(h S(u(t_mid))) on the
+    refined grid, the controls sampled at each substep's midpoint (second
+    order a substep), all in one K5 launch.
+
+    Returns (grid [..., M+1], propagators [..., M, n^2, n^2])."""
+    grid, hS = _lindblad_generators(system, pulse, times, n_substeps, device)
+    return grid, expm(hS)
+
+
+def density_rollout(system, pulse, times, initial, n_substeps: int = 4,
+                    device=None):
+    """Propagate the density matrix `initial` [n, n] through the Lindblad
+    master equation; returns rho at each knot time [..., N, n, n]
+    (complex, on `device`: the card unless the caller passes "cpu")."""
+    _, props = lindblad_propagators(system, pulse, times, n_substeps, device)
+    cum = _cumulative_propagators(props)
+    n = system.levels
+    rho0 = torch.as_tensor(np.asarray(initial)).to(props.device, props.dtype)
+    v0 = rho0.mT.reshape(-1)                          # column-major vec
+    vs = cum @ v0
+    rhos = vs.reshape(*vs.shape[:-1], n, n).mT
+    rhos = torch.cat([rho0.expand(*rhos.shape[:-3], 1, n, n), rhos], dim=-3)
+    return rhos if n_substeps == 1 else rhos[..., ::n_substeps, :, :]
 
 
 def unitary_rollout_fidelity(system, us, times, goal,

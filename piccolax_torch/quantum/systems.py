@@ -1,13 +1,15 @@
-"""Closed quantum systems with linear drives, and their real-generator
-solver view.
+"""Quantum systems with linear drives, open (Lindblad) systems with
+constant-rate dissipators, and their real-generator solver view.
 
     H(u) = H_drift + sum_d u[d] * H_drive_d
+    d rho / dt = -i [H(u), rho] + sum_j rate_j D[L_j](rho)
 
 The port covers a constant drift and linear drive terms; time
-modulations, nonlinear drive coefficients and function-based systems
-raise NotImplementedError. `H(u)` builds the complex Hamiltonian on the
-device of u for the rollout; `solver_view()` is the real generator form
-the collocation solver works in.
+modulations, nonlinear drive coefficients, control-dependent dissipation
+rates and function-based systems raise NotImplementedError. `H(u)` builds
+the complex Hamiltonian on the device of u for the rollout;
+`solver_view()` is the real generator form the collocation solver works
+in (with the compact-iso Lindbladian's parts for an open system).
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import numpy as np
 import torch
 
 from . import isomorphisms as iso_mod
+from .dynamics import liouvillian
 
-__all__ = ["QuantumSystem", "RealGeneratorSystem", "normalize_drive_bounds"]
+__all__ = ["QuantumSystem", "OpenQuantumSystem", "LinearDissipator",
+           "NonlinearDissipator", "RealGeneratorSystem", "normalize_drive_bounds"]
 
 
 def normalize_drive_bounds(bounds, n_drives: int):
@@ -90,32 +94,140 @@ class QuantumSystem:
             self.levels)
 
 
+class LinearDissipator:
+    """Jump operator with a constant rate: effective operator L sqrt(rate)."""
+
+    def __init__(self, L, rate=1.0):
+        self.L = np.asarray(L, dtype=np.complex128)
+        self.rate = float(rate)
+
+    def operator(self, u=None):
+        return self.L * np.sqrt(self.rate)
+
+
+class NonlinearDissipator:
+    """Jump operator with a control-dependent rate f(u): not ported."""
+
+    def __init__(self, *args, **kw):
+        raise NotImplementedError("control-dependent dissipation rates "
+                                  "(NonlinearDissipator)")
+
+
+class OpenQuantumSystem(QuantumSystem):
+    """Lindblad open system: Hamiltonian terms and constant-rate
+    dissipators (a bare matrix is a `LinearDissipator` of rate 1)."""
+
+    def __init__(self, H_drift, H_drives, drive_bounds=None, *, dissipators=()):
+        super().__init__(H_drift, H_drives, drive_bounds)
+        self.dissipators = tuple(
+            d if isinstance(d, LinearDissipator) else LinearDissipator(d) for d in dissipators)
+
+    def liouvillian_iso(self, u=None):
+        """Real iso superoperator on the full density iso-vec [..., 2n^2,
+        2n^2]: d/dt iso_vec(rho) = L_iso @ iso_vec(rho)."""
+        return iso_mod.iso(liouvillian(self, u))
+
+    def compact_lindbladian(self, u=None):
+        """Real generator on the compact density iso [..., n^2, n^2]:
+        P @ L_iso @ Lift with the static compact <-> full maps."""
+        L_iso = self.liouvillian_iso(u)
+        P = torch.as_tensor(iso_mod.density_projection_matrix(self.levels)).to(L_iso)
+        Lf = torch.as_tensor(iso_mod.density_lift_matrix(self.levels)).to(L_iso)
+        return P @ L_iso @ Lf
+
+    def lindblad_rhs(self, rho, u=None):
+        """d rho / dt = -i [H, rho] + sum_j D[L_j](rho), complex matrices
+        [..., n, n] (rho a tensor, or an array moved to H(u)'s device)."""
+        Hm = self.H(u)
+        rho = torch.as_tensor(rho).to(Hm)
+        out = -1j * (Hm @ rho - rho @ Hm)
+        for d in self.dissipators:
+            Lop = torch.as_tensor(d.operator(u)).to(Hm)
+            LdL = Lop.mH @ Lop
+            out = out + Lop @ rho @ Lop.mH - 0.5 * (LdL @ rho + rho @ LdL)
+        return out
+
+    def solver_view(self) -> "RealGeneratorSystem":
+        """The real view with the compact Lindbladian's parts: one constant
+        n^2 x n^2 generator a Hamiltonian term (its coefficient enters
+        linearly) and a unit-rate superoperator a dissipator, scaled by its
+        rate."""
+        n = self.levels
+        P = iso_mod.density_projection_matrix(n)
+        Lf = iso_mod.density_lift_matrix(n)
+
+        def compact_h(X):
+            return P @ iso_mod.iso(-1j * iso_mod.ad_vec(X)) @ Lf
+
+        base = super().solver_view()
+        diss_mats = np.stack([P @ iso_mod.iso_D(d.L) @ Lf for d in self.dissipators]) \
+            if self.dissipators else np.zeros((0, n * n, n * n))
+        return RealGeneratorSystem(
+            base.G_drift, base.G_drives, n, lind_drift=compact_h(self.H_drift),
+            lind_drives=np.stack([compact_h(d) for d in self.H_drives]), diss_mats=diss_mats,
+            diss_rates=np.array([d.rate for d in self.dissipators], dtype=float))
+
+
 class RealGeneratorSystem:
-    """Solver-side system: the real iso generator of every term.
+    """Solver-side system: the real iso generator of every term, and for
+    an open system the compact-iso Lindbladian's parts.
 
     G(u) = G_drift + sum_d u[d] G_d over any leading batch axes of u.
     G_drift is [w, w], or [B, w, w] for a batch of problems that differ
     in their drift (a robustness ensemble): its leading axis is then the
     first axis of u, and it broadcasts over u's other leading axes (the
     knots, line-search candidates). The drives are shared.
+
+    An open system also carries lind_drift [n^2, n^2] (or [B, n^2, n^2],
+    batched as G_drift), lind_drives [nd, n^2, n^2], diss_mats
+    [nL, n^2, n^2] (unit-rate dissipators) and diss_rates [nL] for
+    `compact_lindbladian`; a closed one has lind_drift None.
     """
 
-    def __init__(self, G_drift, G_drives, levels: int):
+    def __init__(self, G_drift, G_drives, levels: int, *, lind_drift=None,
+                 lind_drives=None, diss_mats=None, diss_rates=None):
         self.G_drift = torch.as_tensor(G_drift)
         self.G_drives = torch.as_tensor(G_drives)
         self.levels = int(levels)
         self.n_drives = int(self.G_drives.shape[0])
+        lind = (lind_drift, lind_drives, diss_mats, diss_rates)
+        if any(v is None for v in lind) and any(v is not None for v in lind):
+            raise ValueError("RealGeneratorSystem: lind_drift, lind_drives, diss_mats "
+                             "and diss_rates come together")
+        self.lind_drift, self.lind_drives, self.diss_mats, self.diss_rates = (
+            None if v is None else torch.as_tensor(v) for v in lind)
 
     def to(self, device=None, dtype=None) -> "RealGeneratorSystem":
+        lind = {k: None if v is None else v.to(device, dtype)
+                for k, v in (("lind_drift", self.lind_drift),
+                             ("lind_drives", self.lind_drives),
+                             ("diss_mats", self.diss_mats),
+                             ("diss_rates", self.diss_rates))}
         return RealGeneratorSystem(self.G_drift.to(device, dtype),
                                    self.G_drives.to(device, dtype),
-                                   self.levels)
+                                   self.levels, **lind)
+
+    @staticmethod
+    def _drift_view(drift, u):
+        """A [B, w, w] drift viewed against u [B, ..., d]; a [w, w] one as it is."""
+        if drift.dim() == 3:
+            drift = drift.reshape(drift.shape[0], *([1] * (u.dim() - 2)),
+                                  *drift.shape[1:])
+        return drift
 
     def G(self, u):
         """u [..., n_drives] -> [..., 2n, 2n]; with a batched drift u is
         [B, ..., n_drives]."""
-        drift = self.G_drift
-        if drift.dim() == 3:
-            drift = drift.reshape(drift.shape[0], *([1] * (u.dim() - 2)),
-                                  *drift.shape[1:])
-        return drift + torch.einsum("...d,dij->...ij", u, self.G_drives)
+        return self._drift_view(self.G_drift, u) + \
+            torch.einsum("...d,dij->...ij", u, self.G_drives)
+
+    def compact_lindbladian(self, u):
+        """u [..., n_drives] -> A(u) [..., n^2, n^2] = lind_drift + sum_d
+        u[d] lind_drives[d] + sum_j diss_rates[j] diss_mats[j]: d/dt
+        compact(rho) = A(u) compact(rho); batched as `G`."""
+        if self.lind_drift is None:
+            raise ValueError("compact_lindbladian: a closed system's view has no "
+                             "Lindbladian")
+        diss = torch.einsum("j,jab->ab", self.diss_rates, self.diss_mats)
+        return self._drift_view(self.lind_drift + diss, u) + \
+            torch.einsum("...d,dij->...ij", u, self.lind_drives)

@@ -1,8 +1,10 @@
-"""Unitary trajectories, their discretization into a knot `Trajectory`
-and pulse extraction; the interface of `piccolax.quantum.trajectories`.
+"""Unitary and density trajectories, their discretization into a knot
+`Trajectory` and pulse extraction; the interface of
+`piccolax.quantum.trajectories`.
 
-A `UnitaryTrajectory` rolls its pulse out on the device at construction
-(`dynamics.unitary_rollout`, kernel K5); the knot data and the geodesic
+A `UnitaryTrajectory` or a `DensityTrajectory` rolls its pulse out on
+the device at construction (`dynamics.unitary_rollout` or
+`dynamics.density_rollout`, kernel K5); the knot data and the geodesic
 initial guess are host-side numpy and scipy."""
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from . import isomorphisms as iso
 from .operators import EmbeddedOperator
 from .pulses import ZeroOrderPulse
 
-__all__ = ["UnitaryTrajectory", "discretize", "extract_pulse"]
+__all__ = ["UnitaryTrajectory", "DensityTrajectory", "discretize", "extract_pulse"]
 
 
 class UnitaryTrajectory:
@@ -87,6 +89,57 @@ class UnitaryTrajectory:
         return iso.operator_to_iso_vec(self.goal)
 
 
+class DensityTrajectory:
+    """Open-system density-matrix trajectory: system (an
+    `OpenQuantumSystem`), pulse, initial and goal density matrices, and
+    the Lindblad rollout at the save times computed at construction on
+    `device` (the card unless the caller passes "cpu"), n_substeps midpoint
+    steps an interval."""
+
+    state_name = "rho"
+    subspace = None
+
+    def __init__(self, system, pulse, initial, goal, times=None,
+                 n_substeps: int = 4, device=None):
+        if not isinstance(pulse, ZeroOrderPulse):
+            raise NotImplementedError("only ZeroOrderPulse is ported")
+        self.device = resolve_device(device)
+        self.system = system
+        self.pulse = pulse
+        self.initial = np.asarray(initial, dtype=np.complex128)
+        self.goal = np.asarray(goal, dtype=np.complex128)
+        self.n_substeps = n_substeps
+        self.times = np.asarray(pulse.knot_times() if times is None else times)
+        self.rhos = dyn.density_rollout(system, pulse, self.times, self.initial,
+                                        n_substeps, device=self.device)
+
+    @property
+    def drive_name(self) -> str:
+        return self.pulse.drive_name
+
+    def fidelity(self):
+        """tr(rho_final rho_goal)."""
+        return dyn.density_fidelity(self.rhos[-1], self.goal)
+
+    def rollout(self, pulse=None, n_substeps=None, device=None) -> "DensityTrajectory":
+        """Re-integrate (optionally with a new pulse) -> fresh trajectory,
+        on `device` (default: this trajectory's)."""
+        pulse = pulse or self.pulse
+        return DensityTrajectory(self.system, pulse, self.initial, self.goal,
+                                 times=pulse.knot_times(),
+                                 n_substeps=n_substeps or self.n_substeps,
+                                 device=device or self.device)
+
+    def state_iso(self, times):
+        """Rollout states at the given times as compact isos [T, n^2]."""
+        rhos = dyn.density_rollout(self.system, self.pulse, np.asarray(times),
+                                   self.initial, self.n_substeps, device=self.device)
+        return iso.density_to_compact_iso(rhos.cpu().numpy())
+
+    def goal_iso(self):
+        return iso.density_to_compact_iso(self.goal)
+
+
 def _unitary_geodesic(U_goal, s):
     """Geodesic I -> U_goal on U(n): U(s_k) = expm(s_k * log U_goal)."""
     H = scipy.linalg.logm(np.asarray(U_goal, dtype=complex))
@@ -103,12 +156,14 @@ def _boundary_or_none(value):
 
 def discretize(qtraj, N_or_times=None, *, dt_bounds=None, state_bound=1.0,
                drive_name=None, geodesic: bool = False):
-    """Convert a unitary trajectory into a knot `Trajectory`; with
-    geodesic=True the state knots start on the geodesic from I to the
-    goal. With dt_bounds the timesteps are a bounded control; the
-    accumulated time t stays frozen data (the system is autonomous). Its
-    lower end must be positive: the (dt, u) Hessian entries of the
-    bilinear integrator divide by dt."""
+    """Convert a unitary or density trajectory into a knot `Trajectory`;
+    with geodesic=True a unitary's state knots start on the geodesic from
+    I to the goal (a density trajectory has no geodesic: its knots come
+    from the rollout, as in piccolax). state_bound boxes every state iso
+    component (the compact components of a density). With dt_bounds the
+    timesteps are a bounded control; the accumulated time t stays frozen
+    data (the system is autonomous). Its lower end must be positive: the
+    (dt, u) Hessian entries of the bilinear integrator divide by dt."""
     if dt_bounds is not None and not float(dt_bounds[0]) > 0.0:
         raise ValueError(f"discretize: dt_bounds {tuple(dt_bounds)} must have "
                          "a positive lower end")
@@ -126,7 +181,7 @@ def discretize(qtraj, N_or_times=None, *, dt_bounds=None, state_bound=1.0,
     dname = drive_name or pulse.drive_name
     us = pulse.sample(times)
 
-    if geodesic:
+    if geodesic and isinstance(qtraj, UnitaryTrajectory):
         span = max(float(times[-1] - times[0]), 1e-30)
         s = (times - times[0]) / span
         U_goal = qtraj.goal

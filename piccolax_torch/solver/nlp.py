@@ -45,8 +45,10 @@ def batched_leaves(params):
         out += [(f"{key}/{n}" if isinstance(v, dict) else n, a.shape[0])
                 for n, a in leaves if a is not None and a.dim() > rank]
     system = params.get("system")
-    if system is not None and system.G_drift.dim() > 2:
-        out.append(("system/G_drift", system.G_drift.shape[0]))
+    for key in ("G_drift", "lind_drift"):
+        v = getattr(system, key, None)
+        if v is not None and v.dim() > 2:
+            out.append((f"system/{key}", v.shape[0]))
     return out
 
 
