@@ -23,7 +23,7 @@ torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
-from . import control, parallel, quantum, solver  # noqa: E402
+from . import control, parallel, quantum, solver, utils  # noqa: E402
 from .benchmarks import (cnot_problem, lindblad_problem,  # noqa: E402
                          qutrit_x_problem, robustness_ensemble, sx_gate_problem)
 from .control import QuantumControlProblem, SmoothPulseProblem, build_nlp  # noqa: E402
@@ -41,7 +41,7 @@ from .quantum.systems import (LinearDissipator, OpenQuantumSystem,  # noqa: E402
 from .quantum.templates import TransmonSystem  # noqa: E402
 from .quantum.trajectories import (DensityTrajectory, UnitaryTrajectory,  # noqa: E402
                                    discretize, extract_pulse)
-from .solver import IPMOptions, IPMState, solve_nlp  # noqa: E402
+from .solver import IPMOptions, IPMState, solve_nlp, solve_nlp_traced  # noqa: E402
 from .trajectory import KnotLayout, Trajectory  # noqa: E402
 
 __all__ = [
@@ -50,7 +50,7 @@ __all__ = [
     "QuantumControlProblem", "QuantumSystem", "SmoothPulseProblem",
     "Trajectory", "TransmonSystem", "UnitaryTrajectory", "ZeroOrderPulse",
     "batch_solve", "build_nlp", "discretize", "expm", "extract_pulse",
-    "nlp_from_numpy", "solve_nlp", "cnot_problem", "lindblad_problem",
+    "nlp_from_numpy", "solve_nlp", "solve_nlp_traced", "cnot_problem", "lindblad_problem",
     "qutrit_x_problem", "robustness_ensemble", "sx_gate_problem",
     "density_fidelity", "density_rollout", "unitary_fidelity",
     "unitary_rollout", "unitary_rollout_fidelity",

@@ -28,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "WIDTHS", "reset_launch_counts", "count_launch", "load",
+__all__ = ["LAUNCHES", "WIDTHS", "COLUMNS", "reset_launch_counts", "count_launch",
+           "count_solve", "load",
            "build", "check", "stream_handle", "is_f64", "require"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -47,6 +48,7 @@ LAUNCHES = {"chol_inv_factor": 0, "psd_clamp": 0, "condensed_factor": 0,
             "knot_tridiag_solve": 0}
 
 WIDTHS: dict = {}
+COLUMNS: dict = {}
 
 _LIBS: dict = {}
 
@@ -94,6 +96,14 @@ def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     WIDTHS.clear()
+    COLUMNS.clear()
+
+
+def count_solve(name: str, r: int) -> None:
+    """One launch of KKT solve `name` on r right-hand-side columns."""
+    LAUNCHES[name] += 1
+    key = f"{name} r{r}"
+    COLUMNS[key] = COLUMNS.get(key, 0) + 1
 
 
 def count_launch(name: str, width: int) -> None:

@@ -1,8 +1,8 @@
 """Control layer of the port: integrators, objectives, problem assembly."""
 
-from . import integrators, objectives
+from . import constraints, integrators, objectives
 from .problem import QuantumControlProblem, build_nlp
 from .templates import SmoothPulseProblem
 
 __all__ = ["QuantumControlProblem", "SmoothPulseProblem", "build_nlp",
-           "integrators", "objectives"]
+           "constraints", "integrators", "objectives"]

@@ -19,6 +19,18 @@ lind_drift [n^2, n^2], lind_drives [nd, n^2, n^2], diss_mats
 [nL, n^2, n^2] and diss_rates [nL]; the tuples of piccolax's
 `solver_view()` (one entry a term) stack into these.
 
+Globals, stage equalities and the terms that read them (all optional):
+global_slices {name: (start, stop)} over the global vector, g0 [dg],
+g_lo and g_hi [dg] (default unbounded); free_phase (phase_name,
+n_qubits): the infidelity against the goal rotated by the phase global;
+subspace: the embedded goal's subspace (the Pedersen fidelity of its
+block); leakage_indices with leakage_cost (a `LeakageObjective`) and
+leakage_value (a `LeakageConstraint`, its per-knot slack the component
+leakage_slack of slices, default "_leak_slack_<state_name>");
+calibration_targets {global: value} (a `GlobalPinConstraint` each). The
+equality rows stack as piccolax's templates order them: the pins, then
+the leakage rows.
+
 A batch of problems that share their structure and differ in their data
 (piccolax's `params_batch`, as `robustness_ensemble` builds it) gives
 Z0, pin_val, t, dt, G_drift and goal a leading batch axis of B; they
@@ -34,7 +46,10 @@ import torch
 from ._device import resolve_device
 from .control.integrators import (BilinearDensityIntegrator, BilinearUnitaryIntegrator,
                                   DerivativeIntegrator, TimeStepsEqualIntegrator)
-from .control.objectives import (DensityInfidelityObjective, QuadraticRegularizer,
+from .control.constraints import GlobalPinConstraint, LeakageConstraint
+from .control.objectives import (DensityInfidelityObjective, LeakageObjective,
+                                 QuadraticRegularizer,
+                                 UnitaryFreePhaseInfidelityObjective,
                                  UnitaryInfidelityObjective)
 from .quantum.systems import RealGeneratorSystem
 from .solver.nlp import CollocationNLP, params_to
@@ -49,8 +64,10 @@ def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
     device = resolve_device(device)
     a = arrays
     names = list(a["slices"])
+    gsl = dict(a.get("global_slices", {}))
     layout = KnotLayout(names, [a["slices"][n][1] - a["slices"][n][0]
-                                for n in names])
+                                for n in names],
+                        list(gsl), [gsl[n][1] - gsl[n][0] for n in gsl])
     U, u = a["state_name"], a["drive_name"]
     density = a.get("state_kind", "unitary") == "density"
     goal = np.asarray(a["goal"], float)
@@ -66,10 +83,25 @@ def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
     dt_free = "dt" in layout.slices
     if dt_free and a.get("timesteps_all_equal", True):
         integrators.append(TimeStepsEqualIntegrator("dt"))
-    objectives = [(DensityInfidelityObjective if density
-                   else UnitaryInfidelityObjective)(U, Q=float(a["Q"]))]
+    sub = a.get("subspace")
+    if density:
+        objectives = [DensityInfidelityObjective(U, Q=float(a["Q"]))]
+    elif a.get("free_phase") is not None:
+        phase_name, n_qubits = a["free_phase"]
+        objectives = [UnitaryFreePhaseInfidelityObjective(
+            U, phase_name, int(n_qubits), Q=float(a["Q"]), subspace=sub)]
+    else:
+        objectives = [UnitaryInfidelityObjective(U, Q=float(a["Q"]), subspace=sub)]
     objectives += [QuadraticRegularizer(nm, float(R))
                    for nm, R in zip(derivs, a["R"])]
+    constraints = [GlobalPinConstraint(nm, v)
+                   for nm, v in dict(a.get("calibration_targets", {})).items()]
+    leak = a.get("leakage_indices")
+    if leak is not None and a.get("leakage_cost"):
+        objectives.append(LeakageObjective(U, leak, Q=float(a["leakage_cost"])))
+    if leak is not None and a.get("leakage_value") is not None:
+        constraints.append(LeakageConstraint(U, leak, float(a["leakage_value"]),
+                                             slack_name=a.get("leakage_slack")))
     nl_cols = [c for n in names if n in (u, "dt")
                for c in range(layout.slices[n].start, layout.slices[n].stop)]
     lin_cols = [c for c in range(layout.z_dim) if c not in nl_cols]
@@ -77,10 +109,12 @@ def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
     if not dt_free:
         frozen["dt"] = np.asarray(a["dt"], float)[..., None]
     nlp = CollocationNLP(
-        N=N, dz=layout.z_dim,
+        N=N, dz=layout.z_dim, dg=layout.g_dim,
         md=sum(i.dim for i in integrators), objectives=objectives,
         integrators=integrators, layout=layout,
         lo=np.asarray(a["lo"], float), hi=np.asarray(a["hi"], float),
+        g_lo=a.get("g_lo"), g_hi=a.get("g_hi"),
+        eq_groups=[grp for con in constraints for grp in con.eq_rows(N)],
         pin_mask=np.asarray(a["pin_mask"], float),
         nl_cols=nl_cols, lin_cols=lin_cols).to(device, dtype)
     lind = {k: np.asarray(a[k], float) for k in
@@ -93,5 +127,6 @@ def nlp_from_numpy(arrays, device=None, dtype=torch.float64):
         "pin_val": np.asarray(a["pin_val"], float),
     }, device, dtype)
     Z0 = torch.as_tensor(np.asarray(a["Z0"], float)).to(device, dtype)
-    return nlp, params, Z0, torch.zeros(0, dtype=dtype, device=device), layout
+    g0 = torch.as_tensor(np.asarray(a.get("g0", np.zeros(layout.g_dim)), float))
+    return nlp, params, Z0, g0.to(device, dtype), layout
 

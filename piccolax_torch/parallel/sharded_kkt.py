@@ -340,6 +340,6 @@ def knot_condensed_solve(factors, rhs, mesh, dz):
                            factors["spike"].data_ptr(), factors["Ub"].data_ptr(),
                            factors["f_if"].data_ptr(), rhs.data_ptr(), out.data_ptr(),
                            ws.data_ptr(), B, N, P, m, dz, r, _kernels.stream_handle(rhs))
-    _kernels.LAUNCHES["knot_solve"] += 1
+    _kernels.count_solve("knot_solve", r)
     _kernels.check(rc, "knot_condensed_solve")
     return out[..., 0] if squeeze else out

@@ -26,7 +26,8 @@ __all__ = ["unitary_fidelity", "pedersen_fidelity", "density_fidelity",
            "density_fidelity_iso", "unitary_fidelity_iso_bounded",
            "pedersen_fidelity_iso_bounded", "step_propagators", "unitary_rollout",
            "unitary_rollout_fidelity", "liouvillian", "lindblad_propagators",
-           "density_rollout"]
+           "density_rollout", "free_phase_angles", "free_phase_diagonal",
+           "free_phase_angles_levels"]
 
 
 def unitary_fidelity(U, U_goal, subspace=None):
@@ -75,6 +76,45 @@ def density_fidelity_iso(x_compact, goal_compact):
     this is tr(rho rho_goal) only for a diagonal goal (piccolax's
     docstring says the iso is sqrt(2)-scaled; its code does not scale)."""
     return torch.sum(x_compact * goal_compact, dim=-1)
+
+
+def free_phase_angles(phases, n_qubits: int, dim: int):
+    """Per-entry total free phase [..., dim] of phases [..., n_qubits]:
+    entry i sums the phases of the qubits in |1> in the binary
+    decomposition of i (MSB = qubit 0)."""
+    phases = torch.as_tensor(phases)
+    i = torch.arange(dim, device=phases.device)
+    total = torch.zeros(*phases.shape[:-1], dim, dtype=phases.dtype,
+                        device=phases.device)
+    for j in range(n_qubits):
+        bit = ((i >> (n_qubits - 1 - j)) & 1).to(phases.dtype)
+        total = total + bit * phases[..., j:j + 1]
+    return total
+
+
+def free_phase_diagonal(phases, n_qubits: int, dim: int):
+    """exp(i free_phase_angles) [..., dim], complex."""
+    ang = free_phase_angles(phases, n_qubits, dim)
+    return torch.polar(torch.ones_like(ang), ang)
+
+
+def free_phase_angles_levels(phases, subsystem_levels, dim: int):
+    """Number-operator free phases over subsystem levels [..., dim]: basis
+    index i decomposes row-major into per-subsystem level indices s_j and
+    the total phase is sum_j s_j phases[j] (free_phase_angles when every
+    level is 2)."""
+    phases = torch.as_tensor(phases)
+    i = torch.arange(dim, device=phases.device)
+    total = torch.zeros(*phases.shape[:-1], dim, dtype=phases.dtype,
+                        device=phases.device)
+    rem = i
+    levels = tuple(int(v) for v in subsystem_levels)
+    for j, lv in enumerate(levels):
+        stride = int(np.prod(levels[j + 1:], dtype=int))
+        sj = torch.clamp(rem // stride, max=lv - 1).to(phases.dtype)
+        rem = rem % stride
+        total = total + sj * phases[..., j:j + 1]
+    return total
 
 
 def iso_vec_inner(x, y):
@@ -271,13 +311,12 @@ def unitary_rollout_fidelity(system, us, times, goal,
     """Re-integrate the dynamics under a ZOH interpolation of the knot
     controls us [..., N, d] at times [..., N] and return the gate fidelity
     of the final propagator [...] (the discretization-error check); the
-    Pedersen subspace fidelity for an `EmbeddedOperator` goal.
+    Pedersen subspace fidelity for an `EmbeddedOperator` goal, whose
+    subspace goal `phases` [..., n_qubits] rotate (free_phase_diagonal).
     `dus` is not read by the "constant" interpolation."""
     if interpolation != "constant":
         raise NotImplementedError(
             f"interpolation={interpolation!r} (only 'constant' is ported)")
-    if phases is not None or n_qubits is not None:
-        raise NotImplementedError("free phases")
     if isinstance(us, torch.Tensor) and device is None:
         device = us.device
     device = resolve_device(device)
@@ -288,6 +327,11 @@ def unitary_rollout_fidelity(system, us, times, goal,
     U_final = Us[..., -1, :, :]
     if isinstance(goal, EmbeddedOperator):
         sub = torch.as_tensor(np.asarray(goal.subspace), device=device)
+        U_goal_sub = torch.as_tensor(goal.unembed()).to(device)
+        if phases is not None:
+            diag = free_phase_diagonal(torch.as_tensor(phases, dtype=torch.float64)
+                                       .to(device), n_qubits, U_goal_sub.shape[-1])
+            U_goal_sub = diag[..., :, None] * U_goal_sub
         return pedersen_fidelity(U_final[..., sub[:, None], sub[None, :]],
-                                 goal.unembed())
+                                 U_goal_sub)
     return unitary_fidelity(U_final, goal)

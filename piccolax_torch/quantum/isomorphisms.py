@@ -21,7 +21,8 @@ import torch
 __all__ = ["operator_to_iso_vec", "iso", "G", "operator_subspace_iso_indices",
            "density_to_iso_vec", "iso_vec_to_density", "density_to_compact_iso",
            "compact_iso_to_density", "density_lift_matrix",
-           "density_projection_matrix", "ad_vec", "dissipator", "iso_D"]
+           "density_projection_matrix", "ad_vec", "dissipator", "iso_D",
+           "apply_row_phase_iso"]
 
 
 def operator_to_iso_vec(U):
@@ -223,3 +224,18 @@ def dissipator(L):
 def iso_D(L):
     """Real iso of the Lindblad dissipator superoperator of jump operator L."""
     return iso(dissipator(L))
+
+
+def apply_row_phase_iso(x, cos_t, sin_t):
+    """Multiply row r of the underlying complex operator (or ket) by
+    e^{i theta_r}, in iso coordinates: an operator iso-vec x [..., 2n^2]
+    with cos_t, sin_t [..., n] gives operator_to_iso_vec(diag(e^{i theta})
+    U); a ket iso [..., 2n] gives ket_to_iso(e^{i theta} psi)."""
+    d = x.shape[-1]
+    n = cos_t.shape[-1]
+    b = x.reshape(*x.shape[:-1], d // (2 * n), 2, n)    # [col, (Re, Im), row]
+    c, s = cos_t[..., None, :], sin_t[..., None, :]
+    re = b[..., 0, :] * c - b[..., 1, :] * s
+    im = b[..., 0, :] * s + b[..., 1, :] * c
+    return torch.stack([re, im], dim=-2).reshape(*torch.broadcast_shapes(
+        x.shape[:-1], cos_t.shape[:-1]), d)

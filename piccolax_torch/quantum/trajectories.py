@@ -62,12 +62,21 @@ class UnitaryTrajectory:
             self.subspace, self.subsystem_levels)
 
     def fidelity(self, phases=None, n_qubits=None):
-        if phases is not None or n_qubits is not None:
-            raise NotImplementedError("free phases")
+        """Gate fidelity of the final propagator; with `phases`, against
+        diag(e^{i free_phase_angles}) goal (on the subspace block for an
+        embedded goal), n_qubits defaulting to len(phases)."""
+        U_final = self.Us[-1]
+        goal = self.goal
         if self.subspace is not None:
             sub = np.ix_(self.subspace, self.subspace)
-            return dyn.pedersen_fidelity(self.Us[-1][sub], self.goal[sub])
-        return dyn.unitary_fidelity(self.Us[-1], self.goal)
+            U_final, goal = U_final[sub], goal[sub]
+        if phases is not None:
+            phases = np.asarray(phases, dtype=float)
+            goal = dyn.free_phase_diagonal(phases, n_qubits or len(phases),
+                                           goal.shape[-1]).numpy()[:, None] * goal
+        if self.subspace is not None:
+            return dyn.pedersen_fidelity(U_final, goal)
+        return dyn.unitary_fidelity(U_final, goal)
 
     def rollout(self, pulse=None, n_substeps: int = 1, method=None,
                 device=None) -> "UnitaryTrajectory":

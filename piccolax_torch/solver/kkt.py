@@ -383,7 +383,7 @@ def condensed_solve(factors, C, Cnext, rhs, dz):
                                  rhs.data_ptr(), out.data_ptr(), ws.data_ptr(),
                                  B, N, Np, m, dz, r,
                                  _kernels.stream_handle(rhs))
-    _kernels.LAUNCHES["condensed_solve"] += 1
+    _kernels.count_solve("condensed_solve", r)
     _kernels.check(rc_, "condensed_solve")
     return out
 
@@ -513,7 +513,7 @@ def qd_solve(factors, C, Cnext, rhs, dz):
                          C.data_ptr(), Cnext.data_ptr(), rhs.data_ptr(),
                          out.data_ptr(), B, N, m, dz, r,
                          _kernels.stream_handle(rhs))
-    _kernels.LAUNCHES["qd_solve"] += 1
+    _kernels.count_solve("qd_solve", r)
     _kernels.check(rc, "qd_solve")
     return out
 

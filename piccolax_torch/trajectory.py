@@ -26,7 +26,9 @@ def _freeze_bound(b, dim: int):
 
 class Trajectory:
     """Named knot data over N knots: data name -> [N, dim] float64, with
-    bounds, initial/final pins, goals, controls and frozen components."""
+    bounds, initial/final pins, goals, controls and frozen components;
+    global_data name -> [dim] time-invariant variables (free phases,
+    slacks) with their global_bounds."""
 
     def __init__(self, data, *, controls=(), timestep=None, bounds=None,
                  initial=None, final=None, goal=None, global_data=None,
@@ -36,9 +38,12 @@ class Trajectory:
         assert len(Ns) == 1, f"inconsistent knot counts: {Ns}"
         for k, v in data.items():
             assert v.ndim == 2, f"component {k} must be [N, dim]"
-        if global_data or global_bounds:
-            raise NotImplementedError("trajectory globals")
+        global_data = {k: np.atleast_1d(np.asarray(v, dtype=float))
+                       for k, v in (global_data or {}).items()}
         self.data = data
+        self.global_data = global_data
+        self.global_bounds = {k: _freeze_bound(b, global_data[k].shape[0])
+                              for k, b in (global_bounds or {}).items()}
         self.bounds = {k: _freeze_bound(b, data[k].shape[1])
                        for k, b in (bounds or {}).items()}
         clean = lambda d: {k: np.asarray(v, dtype=float)  # noqa: E731
@@ -68,6 +73,14 @@ class Trajectory:
     def dims(self) -> dict:
         return {k: v.shape[1] for k, v in self.data.items()}
 
+    @property
+    def global_names(self) -> tuple:
+        return tuple(self.global_data.keys())
+
+    @property
+    def global_dim(self) -> int:
+        return sum(v.shape[0] for v in self.global_data.values())
+
     def get_timesteps(self):
         """Per-knot dt array [N] (last entry pads the final knot)."""
         if isinstance(self.timestep, str):
@@ -75,7 +88,9 @@ class Trajectory:
         return np.full(self.N, float(self.timestep))
 
     def __getitem__(self, name: str):
-        return self.data[name]
+        if name in self.data:
+            return self.data[name]
+        return self.global_data[name]
 
     def get_times(self):
         """Accumulated knot times [N], t_0 = 0."""
@@ -100,6 +115,48 @@ class Trajectory:
         controls = self.controls + (name,) if control else self.controls
         return self._copy(data=data, bounds=bounds, initial=init_d,
                           final=fin_d, controls=controls)
+
+    def with_global_data(self, **updates) -> "Trajectory":
+        new = dict(self.global_data)
+        for k, v in updates.items():
+            new[k] = np.atleast_1d(np.asarray(v, dtype=float))
+        return self._copy(global_data=new)
+
+    def update_bound(self, name: str, bound) -> "Trajectory":
+        """The trajectory with the bound of component or global `name`
+        replaced."""
+        if name in self.data:
+            bounds = dict(self.bounds)
+            bounds[name] = _freeze_bound(bound, self.data[name].shape[1])
+            return self._copy(bounds=bounds)
+        gbounds = dict(self.global_bounds)
+        gbounds[name] = _freeze_bound(bound, self.global_data[name].shape[0])
+        return self._copy(global_bounds=gbounds)
+
+    def layout(self) -> "KnotLayout":
+        return KnotLayout(self.names, [self.dims[k] for k in self.names],
+                          self.global_names,
+                          [self.global_data[k].shape[0] for k in self.global_names])
+
+    def knot_matrix(self):
+        """Dense [N, z_dim] view of all components."""
+        return np.concatenate([self.data[k] for k in self.names], axis=1)
+
+    def global_vector(self):
+        if not self.global_data:
+            return np.zeros(0)
+        return np.concatenate([self.global_data[k] for k in self.global_names])
+
+    def with_knot_matrix(self, Z, g=None) -> "Trajectory":
+        """Inverse of knot_matrix/global_vector."""
+        layout = self.layout()
+        Z = np.asarray(Z, dtype=float)
+        out = self._copy(data={k: Z[:, sl] for k, sl in layout.slices.items()})
+        if g is not None and self.global_data:
+            g = np.asarray(g, dtype=float)
+            out = out._copy(global_data={k: g[sl] for k, sl
+                                         in layout.global_slices.items()})
+        return out
 
     def add_control_derivatives(self, order: int, name: str | None = None,
                                 bounds=None, zero_initial: bool = False,
@@ -126,11 +183,10 @@ class Trajectory:
 
 
 class KnotLayout:
-    """Static (name -> column slice) map over the dense knot matrix."""
+    """Static (name -> column slice) map over the dense knot matrix and
+    the global vector."""
 
     def __init__(self, names, dims, global_names=(), global_dims=()):
-        if tuple(global_names):
-            raise NotImplementedError("trajectory globals")
         self.names = tuple(names)
         self.dims = tuple(dims)
         self.slices = {}
@@ -139,7 +195,17 @@ class KnotLayout:
             self.slices[n] = slice(off, off + d)
             off += d
         self.z_dim = off
-        self.g_dim = 0
+        self.global_names = tuple(global_names)
+        self.global_slices = {}
+        goff = 0
+        for n, d in zip(self.global_names, global_dims):
+            self.global_slices[n] = slice(goff, goff + d)
+            goff += d
+        self.g_dim = goff
+
+    def gview(self, g, name: str):
+        """Columns of global `name` from a [..., g_dim] vector."""
+        return g[..., self.global_slices[name]]
 
     def __repr__(self):
         parts = ", ".join(f"{n}:{self.slices[n].start}-{self.slices[n].stop}"

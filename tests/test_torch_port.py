@@ -197,11 +197,7 @@ def test_entry_points_without_device_raise_without_a_card(arrays):
 # -- options off the slice ---------------------------------------------------
 
 
-@pytest.mark.parametrize("opts", [
-    dict(kkt_backend="native"),
-    dict(hess_mode="shift"), dict(hess_mode="shift", kkt_backend="qd"),
-    dict(hess_mode="shift", newton_dir=None),
-])
+@pytest.mark.parametrize("opts", [dict(kkt_backend="native")])
 def test_unported_solver_options_raise(opts):
     nlp, params, Z0, _, _ = pt.sx_gate_problem(N=N, T=T, device="cpu").build(
         device="cpu")
@@ -211,21 +207,7 @@ def test_unported_solver_options_raise(opts):
                      device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(callback=print), dict(resume_from=object()),
-                                dict(g0=torch.zeros(1, 1))])
-def test_unported_solve_arguments_raise(kw):
-    nlp, params, Z0, _, _ = pt.sx_gate_problem(N=N, T=T, device="cpu").build(
-        device="cpu")
-    with pytest.raises(NotImplementedError):
-        pt.solve_nlp(nlp, params, Z0[None], device="cpu",
-                     options=pt.IPMOptions(newton_dir=False), **kw)
-
-
-@pytest.mark.parametrize("kw", [
-    dict(free_phase=True), dict(leakage_value=0.01),
-    dict(options=object()), dict(extra_constraints=[object()]),
-    dict(global_bounds={"x": (0, 1)}),
-])
+@pytest.mark.parametrize("kw", [dict(options=object())])
 def test_unported_template_options_raise(kw):
     with pytest.raises(NotImplementedError):
         pt.sx_gate_problem(N=N, T=T, device="cpu", **kw)

@@ -260,7 +260,7 @@ def test_solve_never_falls_back_to_the_cpu(built):
         qcp.solve(max_iter=2, verbose=False)
 
 
-@pytest.mark.parametrize("kw", [dict(callback=print), dict(verbose="detailed")])
+@pytest.mark.parametrize("kw", [dict(verbose="detailed")])
 def test_unported_solve_arguments_raise(built, kw):
     with pytest.raises(NotImplementedError):
         built["qcp"].solve(max_iter=1, device="cpu", **kw)
